@@ -7,20 +7,30 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. **card** — the device's name and count, and ``nvidia-smi``'s name and
    power limit;
-2. **build** — the CUDA kernels from ``src/repro_torch/kernels/csrc``,
-   all ``nvcc`` processes started together, with ``-Xptxas -v``'s
-   registers and spills;
+2. **build** — the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (``bell_spmm``, ``gmm``, ``flash_attention``), all ``nvcc`` processes
+   started together, with ``-Xptxas -v``'s registers and spills;
 3. **kernel** — every kernel against its plain PyTorch version on the
-   card over a sweep of tile shapes, batch widths and types; two
-   launches bitwise equal; column j of a B = 8 result bitwise the B = 1
-   result on column j;
+   card over a sweep of shapes and types, two launches bitwise equal:
+   ``bell_spmm`` over tile shapes and batch widths (column j of a B = 8
+   result bitwise the B = 1 result on column j), ``gmm`` over the
+   reference tests' shapes × {f32, bf16} in × {f32, bf16} out,
+   ``flash_attention`` over the reference tests' masks and tiles × D in
+   {16, 80} × {f32, bf16} plus a T ≠ S case;
 4. **main path** — ``distribute`` → ``spmv`` → ``solve`` at the repo's
    headline scale config (banded 60,000 × 60,000 with 1.2 M non-zeros,
    ``Topology(4, 4)``, ``NL-HC``, block 16, seed 0) for the replicated,
    selective and ``overlap:2`` exchanges, held against the float64 CSR
    ``reference`` executor; each kernel's launch counter, set to 0 just
    before a path runs, must have risen on it;
-5. **times** — each kernel's time per launch at the main path's shapes
+5. **lm kernels** — the other two kernels on their own entry points at
+   the full width of the repo's language-model configs: the MoE expert
+   FFN of granite-moe-1b-a400m (``plan_groups`` → gather → three
+   ``grouped_matmul`` calls, bf16 and f32), its causal prefill
+   attention, and h2o-danube-1.8b's sliding-window prefill (``mha``),
+   each held against its plain version; each launch counter, set to 0
+   just before its path, must have risen on it;
+6. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, and the spmv wall time and
    peak device memory per exchange.
@@ -36,6 +46,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -51,12 +62,34 @@ SPMV_BATCHES = (1, 8, 64)
 # Tolerances are relative to the result's scale: max |y - y_ref| / max |y_ref|.
 TOL_F32 = 1e-5  # kernel vs plain, and spmv vs the float64 CSR oracle
 TOL_F16 = 2e-2  # float16 tiles and x, float32 accumulation
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores.
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+# float32 FLOP/s outside the tensor cores, and dense bf16 FLOP/s on the
+# tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 KERNEL_SWEEP = ((8, 8), (8, 16), (16, 16), (8, 128), (128, 128))
 SWEEP_BATCHES = (1, 3, 8, 64)
+# The reference tests' tolerances, as rtol and atol: tests/test_kernels_gmm.py
+# and tests/test_kernels_attn.py.
+GMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 8e-2}
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+# (e, k, n, bm, bk, bn) of tests/test_kernels_gmm.py:9-13.
+GMM_SWEEP = ((4, 32, 64, 8, 16, 32), (8, 64, 128, 16, 32, 64), (2, 16, 16, 8, 8, 8))
+# (causal, window) and (s, bq, bkv) of tests/test_kernels_attn.py:19-22.
+ATTN_MASKS = ((True, 0), (False, 0), (True, 8), (True, 16), (True, 32))
+ATTN_TILES = ((64, 16, 16), (128, 32, 16), (64, 64, 64))
+# src/repro/configs/granite_moe_1b_a400m.py: d_model 1024, 16 heads (8 kv
+# heads), head_dim 64, moe_d_ff 512, 32 experts, top-8. Four sequences of
+# 4096 tokens; one layer's experts, random weights from a seed.
+GRANITE = {"d_model": 1024, "heads": 16, "kv_heads": 8, "head_dim": 64,
+           "moe_d_ff": 512, "experts": 32, "top_k": 8, "batch": 4, "seq": 4096}
+# src/repro/configs/h2o_danube_1_8b.py: 32 heads (8 kv heads), head_dim 80,
+# sliding window 4096. One sequence of 8192 tokens.
+H2O = {"heads": 32, "kv_heads": 8, "head_dim": 80, "window": 4096, "batch": 1,
+       "seq": 8192}
+GMM_BM = 128
+ATTN_TILE = 128  # bq = bkv
 
 
 def log(msg: str) -> None:
@@ -81,6 +114,14 @@ def scaled_err(y: torch.Tensor, y_ref: torch.Tensor) -> float:
     in different orders (FMA against separate multiply and add), so their
     difference is held relative to the size of the result."""
     return float((y - y_ref).abs().max() / y_ref.abs().max().clamp(min=1e-30))
+
+
+def allclose_err(y: torch.Tensor, y_ref: torch.Tensor, tol: float) -> tuple:
+    """(max |y - y_ref|, whether |y - y_ref| <= tol + tol·|y_ref| everywhere):
+    the reference tests' ``assert_allclose(rtol=tol, atol=tol)``."""
+    diff = (y.float() - y_ref.float()).abs()
+    ok = bool((diff <= tol + tol * y_ref.float().abs()).all())
+    return float(diff.max()) if diff.numel() else 0.0, ok
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -119,7 +160,7 @@ def phase_build() -> None:
     from repro_torch.kernels.build import build
 
     t0 = time.perf_counter()
-    libs = build(["bell_spmm"])
+    libs = build(["bell_spmm", "gmm", "flash_attention"])
     log(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
     for lib in libs.values():
         usage = [ln.strip() for ln in lib.log.splitlines()
@@ -183,6 +224,67 @@ def phase_kernel(device) -> None:
                                   f"({bm},{bn}) {dtype}")
         log(f"[kernel] bell_spmm ({bm},{bn}) B in {SWEEP_BATCHES}, f32 + f16: ok")
     log(f"[kernel] bell_spmm worst f32 scaled |kernel - plain| = {worst:.3e}")
+
+
+def phase_kernel_gmm(device) -> None:
+    from repro_torch.kernels.gmm import gmm_plain, grouped_matmul
+
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    for e, k, n, bm, bk, bn in GMM_SWEEP:
+        m_tiles = 2 * e
+        x32 = torch.as_tensor(rng.standard_normal((m_tiles * bm, k)).astype(np.float32),
+                              device=device)
+        w32 = torch.as_tensor(rng.standard_normal((e, k, n)).astype(np.float32), device=device)
+        gid = torch.as_tensor(rng.integers(0, e, size=m_tiles).astype(np.int32), device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = x32.to(dtype), w32.to(dtype)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                kw = {"bm": bm, "bk": bk, "bn": bn, "out_dtype": out_dtype}
+                y = grouped_matmul(x, w, gid, **kw)
+                y_plain = gmm_plain(x, w, gid, bm=bm, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                tol = max(GMM_TOL[dtype], GMM_TOL[out_dtype])
+                err, ok = allclose_err(y, y_plain, tol)
+                check(y.dtype == out_dtype and ok,
+                      f"gmm vs plain {(e, k, n, bm, bk, bn)} {dtype} -> {out_dtype}: "
+                      f"max abs err {err:.2e} (tol {tol})")
+                if dtype == out_dtype == torch.float32:
+                    worst = max(worst, err)
+                check(torch.equal(y, grouped_matmul(x, w, gid, **kw)),
+                      f"gmm: two launches differ {(e, k, n, bm, bk, bn)} {dtype} -> {out_dtype}")
+        log(f"[kernel] gmm (e,k,n,bm,bk,bn)={(e, k, n, bm, bk, bn)}, "
+            f"{{f32, bf16}} in x {{f32, bf16}} out: ok")
+    log(f"[kernel] gmm worst f32 max |kernel - plain| = {worst:.3e}")
+
+
+def phase_kernel_attn(device) -> None:
+    from repro_torch.kernels.attn import attention_plain, flash_attention
+
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    cases = [(causal, window, s, s, bq, bkv, d)
+             for causal, window in ATTN_MASKS for s, bq, bkv in ATTN_TILES for d in (16, 80)]
+    cases.append((True, 16, 64, 192, 32, 64, 80))  # T != S
+    for causal, window, s, t, bq, bkv, d in cases:
+        q32, k32, v32 = (torch.as_tensor(rng.standard_normal((2, n, d)).astype(np.float32),
+                                         device=device) for n in (s, t, t))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            kw = {"causal": causal, "window": window, "bq": bq, "bkv": bkv}
+            o = flash_attention(q, k, v, **kw)
+            o_plain = attention_plain(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err, ok = allclose_err(o, o_plain, ATTN_TOL[dtype])
+            check(o.dtype == dtype and ok,
+                  f"flash_attention vs plain {kw} S={s} T={t} D={d} {dtype}: "
+                  f"max abs err {err:.2e}")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            check(torch.equal(o, flash_attention(q, k, v, **kw)),
+                  f"flash_attention: two launches differ {kw} S={s} T={t} D={d} {dtype}")
+    log(f"[kernel] flash_attention {len(cases)} (mask, tiles, D) cases x {{f32, bf16}}: ok; "
+        f"worst f32 max |kernel - plain| = {worst:.3e}")
 
 
 # -- phase 4: main path ------------------------------------------------------
@@ -301,7 +403,172 @@ def phase_main_path(device) -> dict:
     return out
 
 
-# -- phase 5: times ----------------------------------------------------------
+# -- phase 5: lm kernels -----------------------------------------------------
+
+
+def moe_routing(rng, tokens: int, experts: int, top_k: int):
+    """Seeded top-k routing over skewed logits — expert e's logit is shifted
+    by a bias falling from +1.5 to -1.5, so the groups are uneven — and the
+    softmax weights of each token's chosen experts."""
+    logits = rng.standard_normal((tokens, experts)).astype(np.float32)
+    logits += np.linspace(1.5, -1.5, experts, dtype=np.float32)
+    top = np.argpartition(-logits, top_k - 1, axis=1)[:, :top_k]
+    top_logits = np.take_along_axis(logits, top, axis=1)
+    weights = np.exp(top_logits - top_logits.max(axis=1, keepdims=True))
+    return top.astype(np.int64), (weights / weights.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
+def moe_ffn(x_tok, w_gate, w_up, w_down, plan, route_w, top_k):
+    """A dropless MoE expert FFN through ``grouped_matmul``: the routed rows
+    gathered by expert (``plan_groups``' order, padding rows zero), the gate
+    and up products, SiLU(gate)·up in the input type, the down product and
+    the router-weighted sum back to the tokens. Returns the token outputs
+    and, for each product, its (x, w, out)."""
+    from repro_torch.kernels.gmm import grouped_matmul
+
+    order, gid = plan
+    dtype = x_tok.dtype
+    valid = torch.as_tensor(order >= 0, device=x_tok.device)
+    rows = torch.as_tensor(order[order >= 0], device=x_tok.device)  # routed rows
+    xs = torch.zeros((len(order), x_tok.shape[1]), dtype=dtype, device=x_tok.device)
+    xs[valid] = x_tok[rows // top_k]
+    kw = {"bm": GMM_BM, "bk": GMM_BM, "bn": GMM_BM, "out_dtype": torch.float32}
+    g = grouped_matmul(xs, w_gate, gid, **kw)
+    u = grouped_matmul(xs, w_up, gid, **kw)
+    h = (torch.nn.functional.silu(g) * u).to(dtype)
+    y = grouped_matmul(h, w_down, gid, **kw)
+    out = torch.zeros((x_tok.shape[0], w_down.shape[2]), dtype=torch.float32,
+                      device=x_tok.device)
+    out.index_add_(0, rows // top_k, y[valid] * route_w.reshape(-1)[rows][:, None])
+    return out, {"gate": (xs, w_gate, g), "up": (xs, w_up, u), "down": (h, w_down, y)}
+
+
+def moe_per_token(x_tok, w_gate, w_up, w_down, top, route_w, sample):
+    """The sampled tokens' FFN outputs and gate products, token by token:
+    ``x[tok] @ w[expert]`` for each of its experts, in float32 from the same
+    inputs (the check of tests/test_kernels_gmm.py::test_gmm_end_to_end_dispatch)."""
+    dtype = x_tok.dtype
+    out = torch.zeros((len(sample), w_down.shape[2]), dtype=torch.float32, device=x_tok.device)
+    gates = {}
+    for i, tok in enumerate(sample):
+        xt = x_tok[tok].float()
+        for slot, e in enumerate(top[tok]):
+            g = xt @ w_gate[e].float()
+            h = (torch.nn.functional.silu(g) * (xt @ w_up[e].float())).to(dtype).float()
+            out[i] += route_w[tok, slot] * (h @ w_down[e].float())
+            gates[(int(tok), slot)] = g
+    return out, gates
+
+
+def phase_lm_moe(device) -> dict:
+    from repro_torch.kernels.gmm import gmm_plain, grouped_matmul, plan_groups
+
+    cfg = GRANITE
+    rng = np.random.default_rng(2)
+    tokens, d, f, e, top_k = (cfg["batch"] * cfg["seq"], cfg["d_model"], cfg["moe_d_ff"],
+                              cfg["experts"], cfg["top_k"])
+    top, route_w = moe_routing(rng, tokens, e, top_k)
+    t0 = time.perf_counter()
+    order, gid_np, padded = plan_groups(top.reshape(-1), e, GMM_BM)
+    t_plan = time.perf_counter() - t0
+    counts = np.bincount(top.reshape(-1), minlength=e)
+    log(f"[lm moe] granite-moe-1b-a400m experts: {tokens} tokens x top-{top_k} = "
+        f"{top.size} routed rows over {e} experts (group sizes {counts.min()} .. "
+        f"{counts.max()}), plan_groups bm={GMM_BM}: {len(order)} rows, "
+        f"{len(gid_np)} row tiles, {t_plan:.2f} s")
+    check(len(order) == padded.sum() and (order >= 0).sum() == top.size,
+          "plan_groups lost or duplicated a routed row")
+    x32 = torch.as_tensor(rng.standard_normal((tokens, d)).astype(np.float32), device=device)
+    # Weights at a realistic init scale, 1/sqrt(fan_in), so activations stay O(1).
+    w32 = {name: torch.as_tensor((rng.standard_normal(shape) / np.sqrt(shape[1])).astype(
+        np.float32), device=device)
+        for name, shape in (("gate", (e, d, f)), ("up", (e, d, f)), ("down", (e, f, d)))}
+    gid = torch.as_tensor(gid_np, device=device)
+    route_w_t = torch.as_tensor(route_w, device=device)
+    sample = np.sort(rng.choice(tokens, size=256, replace=False))
+    pos_of = {int(r): p for p, r in enumerate(order) if r >= 0}
+
+    out = {"launches": 0, "gid": gid, "padded": padded, "products": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = x32.to(dtype)
+        w = {k: v.to(dtype) for k, v in w32.items()}
+        tol = GMM_TOL[dtype]
+        grouped_matmul.launches = 0
+        y_tok, products = moe_ffn(x, w["gate"], w["up"], w["down"], (order, gid), route_w_t,
+                                  top_k)
+        torch.cuda.synchronize()
+        launches = grouped_matmul.launches
+        check(launches > 0, f"gmm was never launched on the MoE path ({dtype})")
+        out["launches"] += launches
+        check(bool(torch.isfinite(y_tok).all()) and y_tok.shape == (tokens, d),
+              f"MoE output non-finite or misshapen ({dtype})")
+        for name, (xi, wi, yi) in products.items():
+            err, ok = allclose_err(yi, gmm_plain(xi, wi, gid, bm=GMM_BM), tol)
+            check(ok, f"gmm {name} {dtype} vs plain on the full tensors: max abs err {err:.2e}")
+            log(f"[lm moe] {dtype} {name}: x {list(xi.shape)} @ w {list(wi.shape)}, "
+                f"max |kernel - plain| {err:.3e}")
+            out["products"][(name, dtype)] = (xi, wi, err)
+        ref_out, ref_gates = moe_per_token(x, w["gate"], w["up"], w["down"], top, route_w_t,
+                                           sample)
+        err_tok, ok = allclose_err(y_tok[torch.as_tensor(sample, device=device)], ref_out, tol)
+        check(ok, f"MoE output vs per-token experts ({dtype}): max abs err {err_tok:.2e}")
+        g_rows = torch.stack([products["gate"][2][pos_of[int(tok) * top_k + slot]]
+                              for tok, slot in ref_gates])
+        err_g, ok = allclose_err(g_rows, torch.stack(list(ref_gates.values())), tol)
+        check(ok, f"gate rows vs x[tok] @ w[expert] ({dtype}): max abs err {err_g:.2e}")
+        log(f"[lm moe] {dtype}: {launches} gmm launches; 256 sampled tokens vs per-token "
+            f"experts: output max abs err {err_tok:.3e}, gate rows {err_g:.3e}")
+    return out
+
+
+def lm_qkv(rng, cfg, device):
+    """float32 q, k, v as ``mha`` takes them: ``[batch·heads, S, D]``, the kv
+    heads repeated to the query heads by the caller."""
+    b, h, kvh, s, d = cfg["batch"], cfg["heads"], cfg["kv_heads"], cfg["seq"], cfg["head_dim"]
+    q = torch.as_tensor(rng.standard_normal((b, h, s, d)).astype(np.float32), device=device)
+    k, v = (torch.as_tensor(rng.standard_normal((b, kvh, s, d)).astype(np.float32),
+                            device=device).repeat_interleave(h // kvh, dim=1)
+            for _ in range(2))
+    return tuple(a.reshape(b * h, s, d) for a in (q, k, v))
+
+
+def phase_lm_attention(device) -> dict:
+    from repro_torch.kernels.attn import attention_plain, flash_attention, mha, visited_tiles
+
+    rng = np.random.default_rng(3)
+    runs = []
+    granite = lm_qkv(rng, GRANITE, device)
+    h2o = lm_qkv(rng, H2O, device)
+    for name, cfg, qkv, window, dtype in (
+        ("granite-moe-1b-a400m causal", GRANITE, granite, 0, torch.bfloat16),
+        ("granite-moe-1b-a400m causal", GRANITE, granite, 0, torch.float32),
+        ("h2o-danube-1.8b window 4096", H2O, h2o, H2O["window"], torch.bfloat16),
+    ):
+        q, k, v = (a.to(dtype) for a in qkv)
+        bh, s, d = q.shape
+        kw = {"causal": True, "window": window, "bq": ATTN_TILE, "bkv": ATTN_TILE}
+        flash_attention.launches = 0
+        o = mha(q, k, v, **kw)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        check(launches > 0, f"flash_attention was never launched on {name} ({dtype})")
+        check(bool(torch.isfinite(o).all()) and o.shape == q.shape and o.dtype == dtype,
+              f"{name} ({dtype}): output non-finite or misshapen")
+        rows = torch.linspace(0, bh - 1, 4, device=device).long()  # 4 of the BH rows, full S
+        o_plain = attention_plain(q[rows], k[rows], v[rows], causal=True, window=window)
+        err, ok = allclose_err(o[rows], o_plain, ATTN_TOL[dtype])
+        check(ok, f"{name} ({dtype}) vs plain on rows {rows.tolist()}: max abs err {err:.2e}")
+        tiles = visited_tiles(s, s, causal=True, window=window, bq=ATTN_TILE, bkv=ATTN_TILE)
+        triangle = visited_tiles(s, s, causal=True, window=0, bq=ATTN_TILE, bkv=ATTN_TILE)
+        log(f"[lm attn] {name} {dtype}: [BH={bh}, S={s}, D={d}], {launches} launch(es), "
+            f"tiles visited per BH row {tiles} of the causal triangle's {triangle}; "
+            f"max |kernel - plain| on 4 rows {err:.3e}")
+        runs.append({"name": name, "heads": cfg["heads"], "qkv": (q, k, v), "kw": kw,
+                     "launches": launches, "err": err})
+    return {"launches": sum(r["launches"] for r in runs), "runs": runs}
+
+
+# -- phase 6: times ----------------------------------------------------------
 
 
 def bsr_library_ms(bt, xb, reps):
@@ -396,6 +663,142 @@ def phase_times(main: dict, card: dict, device) -> list:
     return rows
 
 
+def bound(bytes_moved: float, flops: float, dtype) -> tuple:
+    """(bound ms, what sets it): the larger of the bytes over the HBM rate
+    and the operations over the peak for the input type."""
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_flops = flops / peak * 1e3
+    return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def grouped_mm_ms(x, w, offs, y_ref):
+    """Time of ``torch._grouped_mm`` on the same rows, groups and weights
+    (output in the input type: this torch refuses a float32 output for bf16
+    inputs), where this torch has it; else (None, the reason)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm absent"
+    try:
+        err = float((fn(x, w, offs=offs).float() - y_ref).abs().max())
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        return None, str(e).splitlines()[0][:160]
+    if err > 1e-1:
+        return None, f"disagrees with the kernel by {err:.2e}"
+    return cuda_ms(lambda: fn(x, w, offs=offs), 10), f"out {x.dtype}"
+
+
+def phase_times_gmm(moe: dict, card: dict) -> list:
+    from repro_torch.kernels.gmm import gmm_plain, grouped_matmul
+
+    gid = moe["gid"]
+    offs = torch.as_tensor(np.cumsum(moe["padded"]), dtype=torch.int32, device=gid.device)
+    rows = []
+    for (name, dtype), (x, w, err) in moe["products"].items():
+        m, k = x.shape
+        n = w.shape[2]
+
+        def kernel(x=x, w=w):
+            return grouped_matmul(x, w, gid, bm=GMM_BM, bk=GMM_BM, bn=GMM_BM,
+                                  out_dtype=torch.float32)
+
+        ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(lambda x=x, w=w: gmm_plain(x, w, gid, bm=GMM_BM), 3, warmup=1)
+        w_sel = w[gid.long()]  # the gather stays outside the timed call
+        x3 = x.view(-1, GMM_BM, k)
+        bmm_ms = cuda_ms(lambda: torch.bmm(x3, w_sel), 10)
+        del w_sel
+        gmm_ms, gmm_how = grouped_mm_ms(x, w, offs, kernel()) if dtype == torch.bfloat16 \
+            else (None, "bf16 only")
+        bytes_moved = (x.numel() * x.element_size() + w.numel() * w.element_size()
+                       + gid.numel() * 4 + m * n * 4)
+        flops = 2.0 * m * k * n
+        bound_ms, bound_by = bound(bytes_moved, flops, dtype)
+        lib_ms, lib_name = ((gmm_ms, f"torch._grouped_mm ({gmm_how})") if gmm_ms is not None
+                            else (bmm_ms, f"torch.bmm over the gathered weights ({dtype})"))
+        rows.append({"name": name, "dtype": dtype, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     "max_abs_err": err})
+        log(f"[times] gmm {name} {dtype} -> float32 x [{m}, {k}] w {list(w.shape)}: "
+            f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), {bound_ms / ms:.1%} of bound, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, torch.bmm {bmm_ms:.4f} ms, "
+            f"torch._grouped_mm "
+            f"{'%.4f ms' % gmm_ms if gmm_ms is not None else 'not run'} ({gmm_how}); "
+            f"library_ms = {lib_name} [{card['smi']}]")
+    return rows
+
+
+def visible_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs of one [S, T] score matrix that the mask keeps."""
+    q = np.arange(s, dtype=np.int64)
+    hi = np.minimum(q, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(q - window, 0) if window > 0 else np.zeros(s, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def sdpa_ms(q, k, v, s, window, heads):
+    """Time of ``scaled_dot_product_attention`` on the same q, k, v (as
+    [B, H, S, D]) and the backend that ran: ``is_causal`` for the causal
+    mask, a boolean ``attn_mask`` with a window."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.attn import attention_mask
+
+    q4, k4, v4 = (a.view(-1, heads, s, a.shape[-1]) for a in (q, k, v))
+    kw = {"is_causal": True}
+    if window > 0:
+        kw = {"attn_mask": attention_mask(s, s, causal=True, window=window, device=q.device)}
+    failed = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)  # each refusal warns
+                torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, **kw)
+                torch.cuda.synchronize()
+                ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, **kw), 5)
+            return ms, backend.name, failed
+        except RuntimeError:
+            failed.append(backend.name)
+    return None, "none", failed
+
+
+def phase_times_attn(attn: dict, card: dict) -> list:
+    from repro_torch.kernels.attn import attention_plain, mha
+
+    rows = []
+    for run in attn["runs"]:
+        q, k, v = run["qkv"]
+        kw = run["kw"]
+        bh, s, d = q.shape
+        ms = cuda_ms(lambda: mha(q, k, v, **kw), 3, warmup=1)
+
+        def plain():  # four BH rows at a time: the [4, S, S] float32 scores fit
+            for i in range(0, bh, 4):
+                attention_plain(q[i:i + 4], k[i:i + 4], v[i:i + 4], causal=True,
+                                window=kw["window"])
+
+        plain_ms = cuda_ms(plain, 1, warmup=1)
+        lib_ms, backend, failed = sdpa_ms(q, k, v, s, kw["window"], run["heads"])
+        pairs = visible_pairs(s, s, True, kw["window"]) * bh
+        flops = 4.0 * d * pairs
+        bytes_moved = 4 * q.numel() * q.element_size()  # q, k, v read, o written
+        bound_ms, bound_by = bound(bytes_moved, flops, q.dtype)
+        rows.append({"name": run["name"], "dtype": q.dtype, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     "max_abs_err": run["err"]})
+        log(f"[times] flash_attention {run['name']} {q.dtype} [BH={bh}, S={s}, D={d}]: "
+            f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {pairs} visible pairs, "
+            f"{flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB), {bound_ms / ms:.1%} of bound, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention "
+            f"{'%.4f ms' % lib_ms if lib_ms is not None else 'not run'} "
+            f"(backend {backend}; refused: {failed or 'none'}) [{card['smi']}]")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present; this script runs on the card",
@@ -406,9 +809,19 @@ def main() -> int:
     card = phase_card()
     phase_build()
     phase_kernel(device)
+    phase_kernel_gmm(device)
+    phase_kernel_attn(device)
     main_path = phase_main_path(device)
+    moe = phase_lm_moe(device)
+    attn = phase_lm_attention(device)
     rows = phase_times(main_path, card, device)
+    gmm_rows = phase_times_gmm(moe, card)
+    attn_rows = phase_times_attn(attn, card)
     head = next(r for r in rows if r["B"] == 8)
+    # The head rows: the granite gate product in bf16 -> float32, and the
+    # granite causal prefill in bf16.
+    gmm_head = next(r for r in gmm_rows if r["name"] == "gate" and r["dtype"] == torch.bfloat16)
+    attn_head = attn_rows[0]
     kernels = [{
         "name": "bell_spmm",
         "route": "cuda",
@@ -422,6 +835,16 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
     }]
+    for name, source, replaces, launches, r in (
+        ("gmm", "src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/kernel.py:53",
+         moe["launches"], gmm_head),
+        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/attn/kernel.py:110", attn["launches"], attn_head),
+    ):
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

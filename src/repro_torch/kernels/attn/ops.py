@@ -1,0 +1,122 @@
+"""Flash attention's public entry points.
+
+:func:`flash_attention` computes causal and/or one-sided sliding-window
+attention over ``[BH, S, D]`` — the JAX package's
+``repro/kernels/attn/kernel.py::flash_attention``. On CUDA tensors it
+launches the hand-written kernel ``csrc/flash_attention.cu`` (built at
+first use); on CPU tensors it runs the plain version
+:func:`repro_torch.kernels.attn.ref.attention_plain`. There is no other
+path: a tensor elsewhere raises. :func:`mha` is the reference's
+``repro/kernels/attn/ops.py::mha`` without ``interpret`` and
+``use_kernel``: the tensors' device chooses.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.attn.ref import attention_plain
+from repro_torch.kernels.build import load
+
+__all__ = ["flash_attention", "mha", "visited_tiles"]
+
+_TYPES = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+MAX_HEAD_DIM = 128  # the CUDA kernel's limit (csrc/flash_attention.cu)
+
+
+def _library() -> ctypes.CDLL:
+    lib = load("flash_attention")
+    for name in _TYPES.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def visited_tiles(s: int, t: int, *, causal: bool, window: int, bq: int, bkv: int) -> int:
+    """How many (bq × bkv) tiles of one ``[S, T]`` score matrix the kernel
+    visits: those with a visible pair by the reference's tile test
+    (``repro/kernels/attn/kernel.py:57-63``)."""
+    q_start = np.arange(s // bq)[:, None] * bq
+    k_start = np.arange(t // bkv)[None, :] * bkv
+    needed = np.ones((s // bq, t // bkv), dtype=bool)
+    if causal:
+        needed &= q_start + bq - 1 >= k_start
+    if window > 0:
+        needed &= q_start <= k_start + bkv - 1 + window
+    return int(needed.sum())
+
+
+def flash_attention(
+    q: torch.Tensor,  # [BH, S, D]
+    k: torch.Tensor,  # [BH, T, D]
+    v: torch.Tensor,  # [BH, T, D]
+    *,
+    causal: bool = True,
+    window: int = 0,  # 0 = unbounded; > 0 = one-sided window q - k <= window
+    bq: int = 128,
+    bkv: int = 128,
+) -> torch.Tensor:
+    """``[BH, S, D]`` in q's type. ``S % bq == 0`` and ``T % bkv == 0``,
+    as the reference asserts. CUDA tensors launch the kernel on the
+    current stream (head dims up to 128) and add one to
+    ``flash_attention.launches``; CPU tensors run the plain version."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"q must be [BH, S, D] and k, v one [BH, T, D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    bh, s, d = q.shape
+    t = k.shape[1]
+    if k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"k and v are {tuple(k.shape)}, q is {tuple(q.shape)}: BH and D differ")
+    if bq <= 0 or bkv <= 0 or s % bq or t % bkv:
+        raise ValueError(f"S={s} and T={t} must be multiples of bq={bq} and bkv={bkv}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k and v on {q.device}, {k.device} and {v.device}: one device for all")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _TYPES:
+        raise TypeError(f"q, k and v must all be float32 or all bfloat16, got "
+                        f"{q.dtype}, {k.dtype} and {v.dtype}")
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, _TYPES[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            bh, s, t, d, bq, bkv, int(bool(causal)), int(window), 1.0 / (d**0.5), stream,
+        )
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention launch failed: {msg} (cudaError {rc})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def mha(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    bq: int = 128,
+    bkv: int = 128,
+) -> torch.Tensor:
+    """Multi-head attention over a flattened (batch·heads) leading dim: the
+    caller repeats grouped kv heads to the query heads. The kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    return flash_attention(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv)

@@ -1,5 +1,7 @@
-"""The port on the card: the CUDA Block-ELL SpMM kernel against its plain
-version, and a small session end to end against the float64 oracle.
+"""The port on the card: each CUDA kernel (Block-ELL SpMM, grouped matmul,
+flash attention) against its plain version, two launches bitwise equal
+and the launch counter rising, and a small session end to end against
+the float64 oracle.
 
 Marked ``gpu``; each test asks a fixture for the card and skips without
 one. The file imports no JAX, so it also runs where only PyTorch is
@@ -12,6 +14,8 @@ import pytest
 import torch
 
 from repro_torch.api import Topology, distribute
+from repro_torch.kernels.attn import attention_plain, flash_attention, mha
+from repro_torch.kernels.gmm import gmm_plain, grouped_matmul, plan_groups
 from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles
 from repro_torch.sparse.generate import banded_coo
 
@@ -71,3 +75,66 @@ def test_session_on_the_card_matches_the_oracle(cuda):
         host = sess.solve("pagerank", iters=10)
         dev = sess.solve("pagerank", iters=10, device_loop=True)
         np.testing.assert_allclose(dev.x, host.x, rtol=1e-4, atol=1e-7)
+
+
+# The reference tests' tolerances (tests/test_kernels_gmm.py and
+# tests/test_kernels_attn.py), as rtol and atol.
+GMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 8e-2}
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.parametrize("e,k,n,bm", [(4, 32, 64, 8), (8, 64, 128, 16), (2, 16, 16, 8),
+                                      (3, 256, 320, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_matches_plain(cuda, e, k, n, bm, dtype, out_dtype):
+    rng = np.random.default_rng(e * 100 + k)
+    m_tiles = 2 * e + 1
+    x = torch.as_tensor(rng.standard_normal((m_tiles * bm, k)), device=cuda).to(dtype)
+    w = torch.as_tensor(rng.standard_normal((e, k, n)), device=cuda).to(dtype)
+    gid = torch.as_tensor(rng.integers(0, e, size=m_tiles), dtype=torch.int32, device=cuda)
+    before = grouped_matmul.launches
+    y = grouped_matmul(x, w, gid, bm=bm, bk=16, bn=16, out_dtype=out_dtype)
+    assert grouped_matmul.launches == before + 1
+    assert y.dtype == out_dtype and y.shape == (m_tiles * bm, n)
+    y_plain = gmm_plain(x, w, gid, bm=bm, out_dtype=out_dtype)
+    tol = max(GMM_TOL[dtype], GMM_TOL[out_dtype])
+    torch.testing.assert_close(y.float(), y_plain.float(), rtol=tol, atol=tol)
+    assert torch.equal(y, grouped_matmul(x, w, gid, bm=bm, bk=16, bn=16, out_dtype=out_dtype))
+
+
+def test_gmm_dispatch_on_the_card(cuda):
+    rng = np.random.default_rng(3)
+    e, k, n, bm = 4, 64, 96, 16
+    expert_of_token = rng.integers(0, e, size=75)
+    order, gid, _ = plan_groups(expert_of_token, e, bm)
+    x_tok = rng.standard_normal((75, k)).astype(np.float32)
+    xs = np.zeros((len(order), k), np.float32)
+    xs[order >= 0] = x_tok[order[order >= 0]]
+    w = rng.standard_normal((e, k, n)).astype(np.float32)
+    y = grouped_matmul(torch.as_tensor(xs, device=cuda), torch.as_tensor(w, device=cuda),
+                       torch.as_tensor(gid, device=cuda), bm=bm, bk=16, bn=32).cpu().numpy()
+    for tok in range(75):
+        pos = int(np.nonzero(order == tok)[0][0])
+        np.testing.assert_allclose(y[pos], x_tok[tok] @ w[expert_of_token[tok]],
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 8), (True, 32),
+                                           (False, 16)])
+@pytest.mark.parametrize("s,t,bq,bkv", [(64, 64, 16, 16), (128, 128, 32, 16),
+                                        (256, 256, 128, 128), (128, 256, 64, 32)])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_matches_plain(cuda, causal, window, s, t, bq, bkv, d, dtype):
+    rng = np.random.default_rng(s + d + window)
+    q, k, v = (torch.as_tensor(rng.standard_normal((3, n, d)), device=cuda).to(dtype)
+               for n in (s, t, t))
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv)
+    assert flash_attention.launches == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    o_plain = attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(o.float(), o_plain.float(), rtol=ATTN_TOL[dtype],
+                               atol=ATTN_TOL[dtype])
+    assert torch.equal(o, mha(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv))

@@ -38,6 +38,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         """
         import sys
         import repro_torch, repro_torch.api, repro_torch.kernels.spmv
+        import repro_torch.kernels.gmm, repro_torch.kernels.attn
         import repro_torch.kernels.build, repro_torch.pmvc.dist
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "jaxlib", "repro")
