@@ -28,8 +28,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    FFN of granite-moe-1b-a400m (``plan_groups`` → gather → three
    ``grouped_matmul`` calls, bf16 and f32), its causal prefill
    attention, and h2o-danube-1.8b's sliding-window prefill (``mha``),
-   each held against its plain version; each launch counter, set to 0
-   just before its path, must have risen on it;
+   the attention in bf16 and f32, each held against its plain version;
+   each launch counter, set to 0 just before its path, must have risen
+   on it;
 6. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, and the spmv wall time and
@@ -543,6 +544,9 @@ def phase_lm_attention(device) -> dict:
         ("granite-moe-1b-a400m causal", GRANITE, granite, 0, torch.bfloat16),
         ("granite-moe-1b-a400m causal", GRANITE, granite, 0, torch.float32),
         ("h2o-danube-1.8b window 4096", H2O, h2o, H2O["window"], torch.bfloat16),
+        # float32 too: at these shapes |o| is about 0.03, so only the float32
+        # tolerance would see a mis-masked tile at the window's edge.
+        ("h2o-danube-1.8b window 4096", H2O, h2o, H2O["window"], torch.float32),
     ):
         q, k, v = (a.to(dtype) for a in qkv)
         bh, s, d = q.shape
@@ -685,7 +689,7 @@ def grouped_mm_ms(x, w, offs, y_ref):
         return None, str(e).splitlines()[0][:160]
     if err > 1e-1:
         return None, f"disagrees with the kernel by {err:.2e}"
-    return cuda_ms(lambda: fn(x, w, offs=offs), 10), f"out {x.dtype}"
+    return cuda_ms(lambda: fn(x, w, offs=offs), 10), f"{x.dtype} in, {x.dtype} out"
 
 
 def phase_times_gmm(moe: dict, card: dict) -> list:
@@ -703,6 +707,10 @@ def phase_times_gmm(moe: dict, card: dict) -> list:
                                   out_dtype=torch.float32)
 
         ms = cuda_ms(kernel, 10)
+        # The kernel with the library call's output type, for a like-for-like
+        # comparison where that call cannot write float32.
+        ms_same_out = cuda_ms(lambda x=x, w=w: grouped_matmul(
+            x, w, gid, bm=GMM_BM, bk=GMM_BM, bn=GMM_BM, out_dtype=x.dtype), 10)
         plain_ms = cuda_ms(lambda x=x, w=w: gmm_plain(x, w, gid, bm=GMM_BM), 3, warmup=1)
         w_sel = w[gid.long()]  # the gather stays outside the timed call
         x3 = x.view(-1, GMM_BM, k)
@@ -715,12 +723,14 @@ def phase_times_gmm(moe: dict, card: dict) -> list:
         flops = 2.0 * m * k * n
         bound_ms, bound_by = bound(bytes_moved, flops, dtype)
         lib_ms, lib_name = ((gmm_ms, f"torch._grouped_mm ({gmm_how})") if gmm_ms is not None
-                            else (bmm_ms, f"torch.bmm over the gathered weights ({dtype})"))
+                            else (bmm_ms, f"torch.bmm over the gathered weights "
+                                          f"({dtype} in, {dtype} out)"))
         rows.append({"name": name, "dtype": dtype, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                     "max_abs_err": err})
+                     "library_call": lib_name, "max_abs_err": err})
         log(f"[times] gmm {name} {dtype} -> float32 x [{m}, {k}] w {list(w.shape)}: "
-            f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"kernel {ms:.4f} ms ({ms_same_out:.4f} ms with {dtype} out), "
+            f"bound {bound_ms:.4f} ms ({bound_by}; "
             f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), {bound_ms / ms:.1%} of bound, "
             f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, torch.bmm {bmm_ms:.4f} ms, "
             f"torch._grouped_mm "
@@ -788,6 +798,7 @@ def phase_times_attn(attn: dict, card: dict) -> list:
         bound_ms, bound_by = bound(bytes_moved, flops, q.dtype)
         rows.append({"name": run["name"], "dtype": q.dtype, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     "library_call": f"scaled_dot_product_attention ({backend}, {q.dtype})",
                      "max_abs_err": run["err"]})
         log(f"[times] flash_attention {run['name']} {q.dtype} [BH={bh}, S={s}, D={d}]: "
             f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {pairs} visible pairs, "
@@ -834,6 +845,7 @@ def main() -> int:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
+        "library_call": head["library_call"],
     }]
     for name, source, replaces, launches, r in (
         ("gmm", "src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/kernel.py:53",
@@ -844,7 +856,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "library_call": r["library_call"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` next to this
 file (a directory ``.gitignore`` lists) and loaded with :mod:`ctypes`.
-The hash is of the source, so an edited source is rebuilt and an
-unchanged one is reused. Nothing is built at import time: the first
-call that needs a kernel builds it.
+The hash is of the source and the shared headers (``csrc/*.cuh``), so
+an edited source is rebuilt and an unchanged one is reused. Nothing is
+built at import time: the first call that needs a kernel builds it.
 
 :func:`build` starts one ``nvcc`` per source, all at once, so the
 build of several kernels takes about as long as the slowest one.
@@ -63,8 +63,13 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> tuple:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # The shared headers are part of every source.
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src, *(os.path.join(CSRC_DIR, h) for h in headers)]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    digest = digest.hexdigest()
     so = os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
     return src, so
 

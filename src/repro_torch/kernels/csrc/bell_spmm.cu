@@ -34,8 +34,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded with ctypes by repro_torch/kernels/spmv/ops.py.
 
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -47,9 +46,6 @@ constexpr int kMaxOutputs = kMaxThreads * kOutPerThread;
 // Largest dynamic shared memory a launch can ask for: a 128x128 float32 tile
 // plus a 128-row x block of kMaxOutputs / 128 columns, with room to spare.
 constexpr int kMaxSmemBytes = 96 * 1024;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -170,8 +166,6 @@ int bell_spmm_f16(const void* tiles, const void* row_ptr, const void* tile_src,
                         nrb, bm, bn, batch, x_unit_stride, stream);
 }
 
-const char* bell_spmm_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+REPRO_ERROR_STRING(bell_spmm)
 
 }  // extern "C"

@@ -52,8 +52,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded with ctypes by repro_torch/kernels/attn/ops.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -68,18 +67,6 @@ constexpr int kMaxHeadDim = 128;
 constexpr int kRowStride = kRows + 1;  // transposed q tile
 constexpr int kKeyStride = kKeys + 1;  // transposed k chunk
 constexpr float kMaskValue = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Row stride of the score tile: bkv rounded up to 32, plus 4, so the four
 // lanes of each of a warp's eight rows fall on distinct banks.
@@ -330,8 +317,6 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                scale, stream);
 }
 
-const char* flash_attention_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+REPRO_ERROR_STRING(flash_attention)
 
 }  // extern "C"

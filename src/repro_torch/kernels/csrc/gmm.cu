@@ -34,26 +34,13 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded with ctypes by repro_torch/kernels/gmm/ops.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kCols = 128;  // output columns per block
 constexpr int kColsPerThread = kCols / 16;
 constexpr int kDepth = 16;  // k-depth of one staged tile
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Threads of a block with BR rows: 16 columns lanes x min(BR, 16) row lanes.
 template <int BR>
@@ -171,8 +158,6 @@ GMM_ENTRY(gmm_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 
 #undef GMM_ENTRY
 
-const char* gmm_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+REPRO_ERROR_STRING(gmm)
 
 }  // extern "C"
