@@ -14,9 +14,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    card over a sweep of shapes and types, two launches bitwise equal:
    ``bell_spmm`` over tile shapes and batch widths (column j of a B = 8
    result bitwise the B = 1 result on column j), ``gmm`` over the
-   reference tests' shapes × {f32, bf16} in × {f32, bf16} out,
+   reference tests' shapes and shapes that reach its ``wgmma`` and
+   ``regblock`` variants × {f32, bf16} in × {f32, bf16} out,
    ``flash_attention`` over the reference tests' masks and tiles × D in
-   {16, 80} × {f32, bf16} plus a T ≠ S case;
+   {16, 80} × {f32, bf16}, D in {64, 128} at 128 × 128 tiles, T ≠ S
+   cases (one with rows that see no key) and a bf16 shape of the
+   ``simt`` variant, held against the plain version with the kernel's
+   tiles; every variant of each kernel must have run;
 4. **main path** — ``distribute`` → ``spmv`` → ``solve`` at the repo's
    headline scale config (banded 60,000 × 60,000 with 1.2 M non-zeros,
    ``Topology(4, 4)``, ``NL-HC``, block 16, seed 0) for the replicated,
@@ -28,13 +32,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    FFN of granite-moe-1b-a400m (``plan_groups`` → gather → three
    ``grouped_matmul`` calls, bf16 and f32), its causal prefill
    attention, and h2o-danube-1.8b's sliding-window prefill (``mha``),
-   the attention in bf16 and f32, each held against its plain version;
-   each launch counter, set to 0 just before its path, must have risen
-   on it;
+   the attention in bf16 and f32, each held against its plain version
+   (bf16 attention also to 2⁻⁶·|ref| + 2e-3 elementwise); each launch
+   counter, set to 0 just before its path, must have risen on it, and
+   so must the per-variant counts of the tensor-core variants (bf16) and
+   of the register-blocked ``gmm`` (f32), never those of ``simt``;
 6. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
-   library call computing the same function, and the spmv wall time and
-   peak device memory per exchange.
+   library call computing the same function, the ``simt`` variant's time
+   at the same shapes (the kernels of the previous slice, compared within
+   the run), and the spmv wall time and peak device memory per exchange.
 
 Then one JSON line with the kernels' numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. With no CUDA device the
@@ -42,6 +49,7 @@ script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -76,10 +84,25 @@ SWEEP_BATCHES = (1, 3, 8, 64)
 GMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 8e-2}
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 # (e, k, n, bm, bk, bn) of tests/test_kernels_gmm.py:9-13.
-GMM_SWEEP = ((4, 32, 64, 8, 16, 32), (8, 64, 128, 16, 32, 64), (2, 16, 16, 8, 8, 8))
+# (e, k, n, bm, bk, bn) of tests/test_kernels_gmm.py:9-13 (the simt variant),
+# then shapes of the wgmma and regblock variants: N not a multiple of 256,
+# 64-row blocks with a ragged N, the granite widths, K not a multiple of 64.
+GMM_SWEEP = ((4, 32, 64, 8, 16, 32), (8, 64, 128, 16, 32, 64), (2, 16, 16, 8, 8, 8),
+             (8, 256, 384, 128, 128, 128), (4, 512, 192, 64, 64, 64),
+             (32, 1024, 512, 128, 128, 128), (4, 80, 256, 128, 16, 128))
 # (causal, window) and (s, bq, bkv) of tests/test_kernels_attn.py:19-22.
 ATTN_MASKS = ((True, 0), (False, 0), (True, 8), (True, 16), (True, 32))
 ATTN_TILES = ((64, 16, 16), (128, 32, 16), (64, 64, 64))
+# Further (causal, window, s, t, bq, bkv, d): D 64 and 128 at 128 × 128
+# tiles; T ≠ S; T < S with a window, so rows from T + window on see no key
+# (the plain version with the kernel's tiles is what the kernels compute
+# there); D 24, which bf16 runs on the simt variant.
+ATTN_EXTRA = ((True, 0, 256, 256, 128, 128, 64), (True, 32, 256, 256, 128, 128, 128),
+              (False, 0, 256, 256, 128, 128, 128), (True, 16, 64, 192, 32, 64, 80),
+              (True, 8, 128, 32, 32, 16, 80), (True, 8, 64, 64, 16, 16, 24))
+# bf16 attention on the [lm attn] path: two bf16 ulps of the result plus a
+# floor, elementwise, against the plain version with the kernel's tiles.
+ATTN_BF16_REL, ATTN_BF16_ABS = 2.0**-6, 2e-3
 # src/repro/configs/granite_moe_1b_a400m.py: d_model 1024, 16 heads (8 kv
 # heads), head_dim 64, moe_d_ff 512, 32 experts, top-8. Four sequences of
 # 4096 tokens; one layer's experts, random weights from a seed.
@@ -228,10 +251,11 @@ def phase_kernel(device) -> None:
 
 
 def phase_kernel_gmm(device) -> None:
-    from repro_torch.kernels.gmm import gmm_plain, grouped_matmul
+    from repro_torch.kernels.gmm import VARIANTS, gmm_plain, grouped_matmul
 
     rng = np.random.default_rng(0)
     worst = 0.0
+    before = dict(grouped_matmul.variant_launches)
     for e, k, n, bm, bk, bn in GMM_SWEEP:
         m_tiles = 2 * e
         x32 = torch.as_tensor(rng.standard_normal((m_tiles * bm, k)).astype(np.float32),
@@ -256,17 +280,20 @@ def phase_kernel_gmm(device) -> None:
                       f"gmm: two launches differ {(e, k, n, bm, bk, bn)} {dtype} -> {out_dtype}")
         log(f"[kernel] gmm (e,k,n,bm,bk,bn)={(e, k, n, bm, bk, bn)}, "
             f"{{f32, bf16}} in x {{f32, bf16}} out: ok")
-    log(f"[kernel] gmm worst f32 max |kernel - plain| = {worst:.3e}")
+    ran = {v: grouped_matmul.variant_launches[v] - before[v] for v in VARIANTS}
+    check(all(ran.values()), f"gmm sweep left a variant unlaunched: {ran}")
+    log(f"[kernel] gmm worst f32 max |kernel - plain| = {worst:.3e}; launches by variant {ran}")
 
 
 def phase_kernel_attn(device) -> None:
-    from repro_torch.kernels.attn import attention_plain, flash_attention
+    from repro_torch.kernels.attn import VARIANTS, attention_plain, flash_attention
 
     rng = np.random.default_rng(0)
     worst = 0.0
+    before = dict(flash_attention.variant_launches)
     cases = [(causal, window, s, s, bq, bkv, d)
              for causal, window in ATTN_MASKS for s, bq, bkv in ATTN_TILES for d in (16, 80)]
-    cases.append((True, 16, 64, 192, 32, 64, 80))  # T != S
+    cases.extend(ATTN_EXTRA)
     for causal, window, s, t, bq, bkv, d in cases:
         q32, k32, v32 = (torch.as_tensor(rng.standard_normal((2, n, d)).astype(np.float32),
                                          device=device) for n in (s, t, t))
@@ -274,7 +301,7 @@ def phase_kernel_attn(device) -> None:
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
             kw = {"causal": causal, "window": window, "bq": bq, "bkv": bkv}
             o = flash_attention(q, k, v, **kw)
-            o_plain = attention_plain(q, k, v, causal=causal, window=window)
+            o_plain = attention_plain(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv)
             torch.cuda.synchronize()
             err, ok = allclose_err(o, o_plain, ATTN_TOL[dtype])
             check(o.dtype == dtype and ok,
@@ -284,8 +311,10 @@ def phase_kernel_attn(device) -> None:
                 worst = max(worst, err)
             check(torch.equal(o, flash_attention(q, k, v, **kw)),
                   f"flash_attention: two launches differ {kw} S={s} T={t} D={d} {dtype}")
+    ran = {v: flash_attention.variant_launches[v] - before[v] for v in VARIANTS}
+    check(all(ran.values()), f"attention sweep left a variant unlaunched: {ran}")
     log(f"[kernel] flash_attention {len(cases)} (mask, tiles, D) cases x {{f32, bf16}}: ok; "
-        f"worst f32 max |kernel - plain| = {worst:.3e}")
+        f"worst f32 max |kernel - plain| = {worst:.3e}; launches by variant {ran}")
 
 
 # -- phase 4: main path ------------------------------------------------------
@@ -489,18 +518,26 @@ def phase_lm_moe(device) -> dict:
     sample = np.sort(rng.choice(tokens, size=256, replace=False))
     pos_of = {int(r): p for p, r in enumerate(order) if r >= 0}
 
-    out = {"launches": 0, "gid": gid, "padded": padded, "products": {}}
+    out = {"launches": 0, "variant_launches": dict.fromkeys(grouped_matmul.variant_launches, 0),
+           "gid": gid, "padded": padded, "products": {}}
     for dtype in (torch.bfloat16, torch.float32):
         x = x32.to(dtype)
         w = {k: v.to(dtype) for k, v in w32.items()}
         tol = GMM_TOL[dtype]
         grouped_matmul.launches = 0
+        grouped_matmul.variant_launches = dict.fromkeys(grouped_matmul.variant_launches, 0)
         y_tok, products = moe_ffn(x, w["gate"], w["up"], w["down"], (order, gid), route_w_t,
                                   top_k)
         torch.cuda.synchronize()
         launches = grouped_matmul.launches
         check(launches > 0, f"gmm was never launched on the MoE path ({dtype})")
+        by_variant = dict(grouped_matmul.variant_launches)
+        new = "wgmma" if dtype == torch.bfloat16 else "regblock"
+        check(by_variant[new] == launches and by_variant["simt"] == 0,
+              f"the MoE path ({dtype}) did not run on the {new} variant alone: {by_variant}")
         out["launches"] += launches
+        for v, c in by_variant.items():
+            out["variant_launches"][v] += c
         check(bool(torch.isfinite(y_tok).all()) and y_tok.shape == (tokens, d),
               f"MoE output non-finite or misshapen ({dtype})")
         for name, (xi, wi, yi) in products.items():
@@ -517,8 +554,8 @@ def phase_lm_moe(device) -> dict:
                               for tok, slot in ref_gates])
         err_g, ok = allclose_err(g_rows, torch.stack(list(ref_gates.values())), tol)
         check(ok, f"gate rows vs x[tok] @ w[expert] ({dtype}): max abs err {err_g:.2e}")
-        log(f"[lm moe] {dtype}: {launches} gmm launches; 256 sampled tokens vs per-token "
-            f"experts: output max abs err {err_tok:.3e}, gate rows {err_g:.3e}")
+        log(f"[lm moe] {dtype}: {launches} gmm launches {by_variant}; 256 sampled tokens vs "
+            f"per-token experts: output max abs err {err_tok:.3e}, gate rows {err_g:.3e}")
     return out
 
 
@@ -552,24 +589,41 @@ def phase_lm_attention(device) -> dict:
         bh, s, d = q.shape
         kw = {"causal": True, "window": window, "bq": ATTN_TILE, "bkv": ATTN_TILE}
         flash_attention.launches = 0
+        flash_attention.variant_launches = dict.fromkeys(flash_attention.variant_launches, 0)
         o = mha(q, k, v, **kw)
         torch.cuda.synchronize()
         launches = flash_attention.launches
+        by_variant = dict(flash_attention.variant_launches)
         check(launches > 0, f"flash_attention was never launched on {name} ({dtype})")
+        if dtype == torch.bfloat16:
+            check(by_variant["mma"] == launches and by_variant["simt"] == 0,
+                  f"{name} (bf16) did not run on the mma variant alone: {by_variant}")
         check(bool(torch.isfinite(o).all()) and o.shape == q.shape and o.dtype == dtype,
               f"{name} ({dtype}): output non-finite or misshapen")
         rows = torch.linspace(0, bh - 1, 4, device=device).long()  # 4 of the BH rows, full S
-        o_plain = attention_plain(q[rows], k[rows], v[rows], causal=True, window=window)
+        o_plain = attention_plain(q[rows], k[rows], v[rows], causal=True, window=window,
+                                  bq=ATTN_TILE, bkv=ATTN_TILE)
         err, ok = allclose_err(o[rows], o_plain, ATTN_TOL[dtype])
         check(ok, f"{name} ({dtype}) vs plain on rows {rows.tolist()}: max abs err {err:.2e}")
+        tight = ""
+        if dtype == torch.bfloat16:
+            diff = (o[rows].float() - o_plain.float()).abs()
+            excess = float((diff - ATTN_BF16_REL * o_plain.float().abs()).max())
+            check(excess <= ATTN_BF16_ABS,
+                  f"{name} (bf16) vs plain: |d| exceeds 2^-6 |ref| by {excess:.2e} > "
+                  f"{ATTN_BF16_ABS}")
+            tight = f", max(|d| - 2^-6 |ref|) = {excess:.3e} (<= {ATTN_BF16_ABS})"
         tiles = visited_tiles(s, s, causal=True, window=window, bq=ATTN_TILE, bkv=ATTN_TILE)
         triangle = visited_tiles(s, s, causal=True, window=0, bq=ATTN_TILE, bkv=ATTN_TILE)
-        log(f"[lm attn] {name} {dtype}: [BH={bh}, S={s}, D={d}], {launches} launch(es), "
-            f"tiles visited per BH row {tiles} of the causal triangle's {triangle}; "
-            f"max |kernel - plain| on 4 rows {err:.3e}")
+        log(f"[lm attn] {name} {dtype}: [BH={bh}, S={s}, D={d}], {launches} launch(es) "
+            f"{by_variant}, tiles visited per BH row {tiles} of the causal triangle's "
+            f"{triangle}; max |kernel - plain| on 4 rows {err:.3e}{tight}")
         runs.append({"name": name, "heads": cfg["heads"], "qkv": (q, k, v), "kw": kw,
-                     "launches": launches, "err": err})
-    return {"launches": sum(r["launches"] for r in runs), "runs": runs}
+                     "launches": launches, "variant_launches": by_variant, "err": err})
+    variant_launches = {v: sum(r["variant_launches"][v] for r in runs)
+                        for v in flash_attention.variant_launches}
+    return {"launches": sum(r["launches"] for r in runs), "variant_launches": variant_launches,
+            "runs": runs}
 
 
 # -- phase 6: times ----------------------------------------------------------
@@ -692,8 +746,25 @@ def grouped_mm_ms(x, w, offs, y_ref):
     return cuda_ms(lambda: fn(x, w, offs=offs), 10), f"{x.dtype} in, {x.dtype} out"
 
 
+def simt_ms(lib_name: str, fn_name: str, *args) -> float:
+    """Time of the ``simt`` variant on the same arguments, by its C entry
+    point (the wrapper would choose the new variant at these shapes):
+    the previous slice's kernel, compared within this run."""
+    if lib_name == "gmm":
+        from repro_torch.kernels.gmm.ops import _library
+    else:
+        from repro_torch.kernels.attn.ops import _library
+    fn = getattr(_library(), fn_name)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+
+    def run():
+        check(fn(*ptrs, torch.cuda.current_stream().cuda_stream) == 0, f"{fn_name} launch failed")
+
+    return cuda_ms(run, 3, warmup=1)
+
+
 def phase_times_gmm(moe: dict, card: dict) -> list:
-    from repro_torch.kernels.gmm import gmm_plain, grouped_matmul
+    from repro_torch.kernels.gmm import gmm_plain, gmm_variant, grouped_matmul
 
     gid = moe["gid"]
     offs = torch.as_tensor(np.cumsum(moe["padded"]), dtype=torch.int32, device=gid.device)
@@ -712,6 +783,11 @@ def phase_times_gmm(moe: dict, card: dict) -> list:
         ms_same_out = cuda_ms(lambda x=x, w=w: grouped_matmul(
             x, w, gid, bm=GMM_BM, bk=GMM_BM, bn=GMM_BM, out_dtype=x.dtype), 10)
         plain_ms = cuda_ms(lambda x=x, w=w: gmm_plain(x, w, gid, bm=GMM_BM), 3, warmup=1)
+        variant = gmm_variant(dtype, GMM_BM, k, n)
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        old_ms = simt_ms("gmm", f"gmm_simt_{'bf16' if dtype == torch.bfloat16 else 'f32'}_f32",
+                         x, w, gid, out, m, k, n, w.shape[0], GMM_BM)
+        del out
         w_sel = w[gid.long()]  # the gather stays outside the timed call
         x3 = x.view(-1, GMM_BM, k)
         bmm_ms = cuda_ms(lambda: torch.bmm(x3, w_sel), 10)
@@ -725,11 +801,13 @@ def phase_times_gmm(moe: dict, card: dict) -> list:
         lib_ms, lib_name = ((gmm_ms, f"torch._grouped_mm ({gmm_how})") if gmm_ms is not None
                             else (bmm_ms, f"torch.bmm over the gathered weights "
                                           f"({dtype} in, {dtype} out)"))
-        rows.append({"name": name, "dtype": dtype, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                     "library_call": lib_name, "max_abs_err": err})
+        rows.append({"name": name, "dtype": dtype, "variant": variant, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "library_call": lib_name, "max_abs_err": err,
+                     "simt_ms": old_ms})
         log(f"[times] gmm {name} {dtype} -> float32 x [{m}, {k}] w {list(w.shape)}: "
-            f"kernel {ms:.4f} ms ({ms_same_out:.4f} ms with {dtype} out), "
+            f"kernel ({variant}) {ms:.4f} ms ({ms_same_out:.4f} ms with {dtype} out), "
+            f"simt variant {old_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}; "
             f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), {bound_ms / ms:.1%} of bound, "
             f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, torch.bmm {bmm_ms:.4f} ms, "
@@ -776,7 +854,7 @@ def sdpa_ms(q, k, v, s, window, heads):
 
 
 def phase_times_attn(attn: dict, card: dict) -> list:
-    from repro_torch.kernels.attn import attention_plain, mha
+    from repro_torch.kernels.attn import attention_plain, attention_variant, mha
 
     rows = []
     for run in attn["runs"]:
@@ -787,21 +865,29 @@ def phase_times_attn(attn: dict, card: dict) -> list:
 
         def plain():  # four BH rows at a time: the [4, S, S] float32 scores fit
             for i in range(0, bh, 4):
-                attention_plain(q[i:i + 4], k[i:i + 4], v[i:i + 4], causal=True,
-                                window=kw["window"])
+                attention_plain(q[i:i + 4], k[i:i + 4], v[i:i + 4], **kw)
 
         plain_ms = cuda_ms(plain, 1, warmup=1)
+        variant = attention_variant(q.dtype, d, kw["bq"], kw["bkv"])
+        old_ms = ms
+        if variant != "simt":
+            o = torch.empty_like(q)
+            old_ms = simt_ms("attn", "flash_attention_simt_bf16", q, k, v, o, bh, s, s, d,
+                             kw["bq"], kw["bkv"], 1, kw["window"], ctypes.c_float(d**-0.5))
+            del o
         lib_ms, backend, failed = sdpa_ms(q, k, v, s, kw["window"], run["heads"])
         pairs = visible_pairs(s, s, True, kw["window"]) * bh
         flops = 4.0 * d * pairs
         bytes_moved = 4 * q.numel() * q.element_size()  # q, k, v read, o written
         bound_ms, bound_by = bound(bytes_moved, flops, q.dtype)
-        rows.append({"name": run["name"], "dtype": q.dtype, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        rows.append({"name": run["name"], "dtype": q.dtype, "variant": variant, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms,
                      "library_call": f"scaled_dot_product_attention ({backend}, {q.dtype})",
-                     "max_abs_err": run["err"]})
+                     "max_abs_err": run["err"], "simt_ms": old_ms})
         log(f"[times] flash_attention {run['name']} {q.dtype} [BH={bh}, S={s}, D={d}]: "
-            f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {pairs} visible pairs, "
+            f"kernel ({variant}) {ms:.4f} ms, simt variant {old_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}; {pairs} visible pairs, "
             f"{flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB), {bound_ms / ms:.1%} of bound, "
             f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, "
             f"scaled_dot_product_attention "
@@ -847,17 +933,19 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "library_call": head["library_call"],
     }]
-    for name, source, replaces, launches, r in (
+    for name, source, replaces, path, r in (
         ("gmm", "src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/kernel.py:53",
-         moe["launches"], gmm_head),
+         moe, gmm_head),
         ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "src/repro/kernels/attn/kernel.py:110", attn["launches"], attn_head),
+         "src/repro/kernels/attn/kernel.py:110", attn, attn_head),
     ):
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "launches": path["launches"], "variant": r["variant"],
+                        "variant_launches": path["variant_launches"],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "library_call": r["library_call"]})
+                        "library_call": r["library_call"], "simt_ms": r["simt_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

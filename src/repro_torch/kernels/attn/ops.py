@@ -3,8 +3,15 @@
 :func:`flash_attention` computes causal and/or one-sided sliding-window
 attention over ``[BH, S, D]`` — the JAX package's
 ``repro/kernels/attn/kernel.py::flash_attention``. On CUDA tensors it
-launches the hand-written kernel ``csrc/flash_attention.cu`` (built at
-first use); on CPU tensors it runs the plain version
+launches one of the hand-written kernels of ``csrc/flash_attention.cu``
+(built at first use), the variant that :func:`attention_variant` names
+from type and shape alone, before the launch:
+
+* ``mma`` — bf16 with D, ``bq`` and ``bkv`` multiples of 16, on the
+  tensor cores (``mma.sync.m16n8k16``);
+* ``simt`` — float32, and any other bf16 shape, on the CUDA cores.
+
+On CPU tensors it runs the plain version
 :func:`repro_torch.kernels.attn.ref.attention_plain`. There is no other
 path: a tensor elsewhere raises. :func:`mha` is the reference's
 ``repro/kernels/attn/ops.py::mha`` without ``interpret`` and
@@ -14,21 +21,33 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
-from repro_torch.kernels.attn.ref import attention_plain
+from repro_torch.kernels.attn.ref import attention_plain, tile_visits
 from repro_torch.kernels.build import load
 
-__all__ = ["flash_attention", "mha", "visited_tiles"]
+__all__ = ["VARIANTS", "attention_variant", "flash_attention", "mha", "visited_tiles"]
 
-_TYPES = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
-MAX_HEAD_DIM = 128  # the CUDA kernel's limit (csrc/flash_attention.cu)
+_TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+VARIANTS = ("mma", "simt")
+MAX_HEAD_DIM = 128  # the CUDA kernels' limit (csrc/flash_attention.cu)
+
+
+def attention_variant(dtype: torch.dtype, d: int, bq: int, bkv: int) -> str:
+    """The CUDA kernel that takes inputs of ``dtype`` with head dim ``d``
+    and tiles ``bq``, ``bkv``: ``mma`` for bf16 when all three are
+    multiples of 16 (``d`` up to 128), ``simt`` otherwise. Pure: type and
+    shape alone decide."""
+    if (dtype == torch.bfloat16 and d % 16 == 0 and d <= MAX_HEAD_DIM and bq % 16 == 0
+            and bkv % 16 == 0):
+        return "mma"
+    return "simt"
 
 
 def _library() -> ctypes.CDLL:
     lib = load("flash_attention")
-    for name in _TYPES.values():
+    for name in ("flash_attention_simt_f32", "flash_attention_simt_bf16",
+                 "flash_attention_mma_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p,
@@ -41,16 +60,8 @@ def _library() -> ctypes.CDLL:
 
 def visited_tiles(s: int, t: int, *, causal: bool, window: int, bq: int, bkv: int) -> int:
     """How many (bq × bkv) tiles of one ``[S, T]`` score matrix the kernel
-    visits: those with a visible pair by the reference's tile test
-    (``repro/kernels/attn/kernel.py:57-63``)."""
-    q_start = np.arange(s // bq)[:, None] * bq
-    k_start = np.arange(t // bkv)[None, :] * bkv
-    needed = np.ones((s // bq, t // bkv), dtype=bool)
-    if causal:
-        needed &= q_start + bq - 1 >= k_start
-    if window > 0:
-        needed &= q_start <= k_start + bkv - 1 + window
-    return int(needed.sum())
+    visits (:func:`repro_torch.kernels.attn.ref.tile_visits`)."""
+    return int(tile_visits(s, t, causal=causal, window=window, bq=bq, bkv=bkv).sum())
 
 
 def flash_attention(
@@ -64,9 +75,12 @@ def flash_attention(
     bkv: int = 128,
 ) -> torch.Tensor:
     """``[BH, S, D]`` in q's type. ``S % bq == 0`` and ``T % bkv == 0``,
-    as the reference asserts. CUDA tensors launch the kernel on the
-    current stream (head dims up to 128) and add one to
-    ``flash_attention.launches``; CPU tensors run the plain version."""
+    as the reference asserts. CUDA tensors launch the kernel that
+    :func:`attention_variant` names on the current stream (head dims up to
+    128) and add one to ``flash_attention.launches`` and to that
+    variant's ``flash_attention.variant_launches``; CPU tensors run the
+    plain version with the same tiles, so a row whose tile visits no key
+    is 0 there too."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"q must be [BH, S, D] and k, v one [BH, T, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -82,28 +96,32 @@ def flash_attention(
         raise TypeError(f"q, k and v must all be float32 or all bfloat16, got "
                         f"{q.dtype}, {k.dtype} and {v.dtype}")
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, window=window)
+        return attention_plain(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    variant = attention_variant(q.dtype, d, bq, bkv)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, _TYPES[q.dtype])(
+        rc = getattr(lib, f"flash_attention_{variant}_{_TYPES[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bh, s, t, d, bq, bkv, int(bool(causal)), int(window), 1.0 / (d**0.5), stream,
         )
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention launch failed: {msg} (cudaError {rc})")
+        raise RuntimeError(f"flash_attention launch failed ({variant}): {msg} "
+                           f"(cudaError {rc})")
     flash_attention.launches += 1
+    flash_attention.variant_launches[variant] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def mha(

@@ -1,6 +1,7 @@
 // Helpers shared by the port's CUDA sources: conversions between the
-// storage types and the float32 the kernels compute in, and the error
-// message entry point each library exports.
+// storage types and the float32 the kernels compute in, asynchronous copies
+// into shared memory (cp.async), and the error message entry point each
+// library exports.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,6 +20,36 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// The 32-bit shared-memory address of a generic pointer into shared memory.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copy `bytes` (16, or 0 for a zero fill) from global to shared memory
+// without a register round trip; the 16 bytes land in dst either way.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The same for 4 bytes (4, or 0 for a zero fill).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Defines `const char* PREFIX_error_string(int code)`: the message of the

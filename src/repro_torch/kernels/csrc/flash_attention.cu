@@ -10,14 +10,18 @@
 // (window <= 0 or s - t <= window). Keys are indexed from 0 for any T; with
 // causal off, later keys stay visible. The output is in q's type.
 //
-// The kernel keeps the reference's semantics exactly where they are subtle:
+// Both variants keep the reference's semantics exactly where they are
+// subtle:
 //   * the q axis is cut into the caller's bq tiles and the key axis into bkv
 //     tiles; a (bq x bkv) tile with no visible pair is skipped by the same
 //     test as the reference (causal: q_start + bq - 1 >= k_start; window:
 //     q_start <= k_start + bkv - 1 + window), and the visited tiles are
-//     walked in ascending order;
+//     walked in ascending order. The visit set is the caller's tile set and
+//     no finer one: every row of a bq tile walks the tile's whole set, since
+//     for a row that sees no key the visited set is the result (the mean of
+//     v over the visited keys, or 0 when no tile is visited);
 //   * masked scores are the finite -1e30, not -inf. A row whose first
-//     visited tile is fully masked takes p = exp(0) = 1 junk there, which
+//     visited keys are all masked takes p = exp(0) = 1 junk there, which
 //     alpha = exp(-1e30 - m) = 0 wipes exactly once a visible key arrives;
 //     with -inf the same row would be NaN;
 //   * the scale 1/sqrt(D) multiplies the float32 scores after the product;
@@ -27,26 +31,38 @@
 // What bounds it on an H100: operations. A visible (query, key) pair costs
 // 4 D flops against a few bytes, and prefill attention over thousands of
 // keys is far above the ridge of either the float32 CUDA cores or the bf16
-// tensor cores. This first kernel runs on the CUDA cores for both types
-// (67 TFLOP/s float32 FMA), so the design keeps them fed and keeps the score
-// matrix out of device memory:
-//   * a thread block owns 32 rows of one bq tile (a bq tile of 128 rows is
-//     four blocks; each row's softmax is its own, so splitting rows changes
-//     no result) and walks that tile's visited kv tiles inside the block;
-//   * q rows stay in shared memory, transposed, for the whole walk; keys and
-//     values are staged in chunks of 64 rows; scores of one kv tile stay in
-//     shared memory; m, l and the scale factor live in shared memory per row
-//     and the output accumulator in registers (4 rows x ceil(D / 16) columns
-//     a thread), so device memory sees q, k, v read and o written, nothing
-//     else;
-//   * each thread computes a 4 x 4 patch of scores and a 4 x ceil(D / 16)
-//     patch of the PV product, so one shared-memory load feeds several FMAs.
-// Any D up to 128 is taken (columns past D are masked; 80 is not a power of
-// two). Blocks are issued from the last q tile to the first, so the longest
-// causal rows start first. Numerics: every sum is a fixed chain (FMA over d
-// or over keys in order; the row max and row sum over four lanes by a fixed
-// shuffle pattern), no atomics, so two launches are bitwise equal. Tensor
-// cores for bf16 are later work.
+// tensor cores. The variants, chosen by the wrapper from type and shape
+// before the launch (repro_torch/kernels/attn/ops.py::attention_variant):
+//
+//   * `mma` (bf16, D, bq and bkv multiples of 16, D <= 128), in the manner
+//     of FlashAttention-2 on mma.sync.m16n8k16 (bf16 in, float32
+//     accumulated). A warp owns 16 q rows and a block up to 4 warps (64
+//     rows) of one bq tile, so a bq = 128 tile is two blocks. The visited
+//     tiles of a bq tile are one contiguous key range (both tests are
+//     monotone in k_start); its keys and values are staged in 64-key chunks
+//     by a double-buffered cp.async ring and read with ldmatrix (ldmatrix
+//     .trans for V). The q fragments stay in registers for the whole walk,
+//     the scores of a chunk in the accumulator registers, the online
+//     softmax in registers (quad shuffles for the row max), and p enters
+//     the PV product as the bf16 A operand straight from those registers.
+//     Chunks are a coarser grouping of the same ascending walk; the -1e30
+//     arithmetic above holds for any grouping.
+//   * `simt` (float32, and bf16 shapes the `mma` variant does not take), the
+//     first kernel of the port, on the CUDA cores (67 TFLOP/s float32 FMA):
+//     a block owns 32 rows of one bq tile (a bq tile of 128 rows is four
+//     blocks) and walks that tile's visited kv tiles; q rows stay in shared
+//     memory, transposed; keys and values are staged in chunks of 64 rows;
+//     scores of one kv tile stay in shared memory; m, l and the scale factor
+//     live in shared memory per row and the output accumulator in registers
+//     (4 rows x ceil(D / 16) columns a thread); each thread computes a 4 x 4
+//     patch of scores and a 4 x ceil(D / 16) patch of the PV product. Any D
+//     up to 128 is taken (columns past D are masked).
+//
+// Both issue blocks from the last q tile to the first, so the longest causal
+// rows start first, and write each output once. Numerics: every sum is a
+// fixed chain (fixed mma and FMA order, the row max and row sum over four
+// lanes by a fixed shuffle pattern), no atomics, so two launches are bitwise
+// equal.
 //
 // Plain C interface, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -257,7 +273,7 @@ attn_kernel(const T* __restrict__ q,  // [BH, S, D]
 }
 
 template <typename T, int DC>
-int launch_dc(const void* q, const void* k, const void* v, void* o, int BH,
+int launch_simt_dc(const void* q, const void* k, const void* v, void* o, int BH,
               int S, int Tk, int D, int bq, int bkv, int causal, int window,
               float scale, void* stream) {
   const size_t smem = sizeof(float) * ((size_t)D * kRowStride + kv_floats(D, DC) +
@@ -277,7 +293,7 @@ int launch_dc(const void* q, const void* k, const void* v, void* o, int BH,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int S,
+int launch_simt(const void* q, const void* k, const void* v, void* o, int BH, int S,
            int Tk, int D, int bq, int bkv, int causal, int window, float scale,
            void* stream) {
   if (BH == 0 || S == 0) return (int)cudaSuccess;
@@ -285,7 +301,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int S,
     return (int)cudaErrorInvalidValue;
 #define ATTN_DC(N) \
   case N:          \
-    return launch_dc<T, N>(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window, scale, stream);
+    return launch_simt_dc<T, N>(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window, scale, stream);
   switch ((D + 15) / 16) {
     ATTN_DC(1)
     ATTN_DC(2)
@@ -300,21 +316,334 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int S,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// mma: bf16 on the tensor cores (mma.sync.m16n8k16), 16 q rows a warp.
+
+constexpr int kMmaWarps = 4;  // warps (16 rows each) a block at most
+constexpr int kMmaKeys = 64;  // keys per staged chunk
+constexpr int kMmaStages = 2;  // chunks of k and v in the cp.async ring (double buffer)
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 accumulated.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Stage `rows` rows of D bf16 (a row stride of D + 8 in shared memory, so
+// the eight rows of an ldmatrix fall on distinct banks) with cp.async.
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int rows, int tid,
+                                           int nthreads) {
+  constexpr int kPieces = D / 8;  // 16-byte pieces a row
+  for (int i = tid; i < rows * kPieces; i += nthreads) {
+    const int r = i / kPieces;
+    const int c = 8 * (i % kPieces);
+    cp_async_16(dst + r * (D + 8) + c, src + (long long)r * D + c, 16);
+  }
+}
+
+// Up to D = 80 four blocks share an SM (128 registers a thread, which
+// measured faster at h2o-danube's D = 80 than three blocks without the
+// cap); wider heads keep their registers, as the cap would spill them.
+template <int D>
+__global__ void __launch_bounds__(32 * kMmaWarps, D <= 80 ? 4 : 1)
+attn_mma_kernel(const bf16* __restrict__ q,  // [BH, S, D]
+                const bf16* __restrict__ k,  // [BH, T, D]
+                const bf16* __restrict__ v,  // [BH, T, D]
+                bf16* __restrict__ o,        // [BH, S, D]
+                int BH, int S, int Tk, int bq, int bkv, int causal, int window,
+                float scale) {
+  constexpr int DS = D + 8;       // shared-memory row stride
+  constexpr int KD = D / 16;      // k-steps of QK^T, pairs of n8 tiles of PV
+  constexpr int NT = kMmaKeys / 8;  // n8 tiles of a chunk's scores
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);  // [64][DS]
+  bf16* s_k = s_q + 16 * kMmaWarps * DS;          // [kMmaStages][kMmaKeys][DS]
+  bf16* s_v = s_k + kMmaStages * kMmaKeys * DS;   // [kMmaStages][kMmaKeys][DS]
+
+  const int nthreads = blockDim.x;
+  const int rows_per_block = 16 * (nthreads / 32);
+  const int nsub = (bq + rows_per_block - 1) / rows_per_block;
+  const int nqt = S / bq;
+  const int per_tile = BH * nsub;
+  const int qt = nqt - 1 - blockIdx.x / per_tile;  // last q tiles first
+  const int bh = (blockIdx.x % per_tile) / nsub;
+  const int sub = blockIdx.x % nsub;
+  const int q_start = qt * bq;
+  const int r_base = q_start + sub * rows_per_block;
+  const int nr = min(rows_per_block, bq - sub * rows_per_block);  // a multiple of 16
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;  // fragment row (and row + 8)
+  const int qd = lane % 4;  // fragment column pair
+  const bool active = 16 * warp < nr;
+  const int w_row = r_base + 16 * warp;  // the warp's first row
+
+  // The visited kv tiles of this bq tile: one contiguous range.
+  const int nkt = Tk / bkv;
+  int kt_lo = 0, kt_hi = nkt - 1;
+  if (causal) kt_hi = min(kt_hi, (q_start + bq - 1) / bkv);
+  if (window > 0 && q_start - window - bkv + 1 > 0)
+    kt_lo = (q_start - window - bkv + 1 + bkv - 1) / bkv;
+  const int key_lo = kt_lo * bkv;
+  const int key_hi = (kt_hi + 1) * bkv;
+  const int nchunks = key_hi > key_lo ? (key_hi - key_lo + kMmaKeys - 1) / kMmaKeys : 0;
+
+  const bf16* q_b = q + ((long long)bh * S + r_base) * D;
+  const bf16* k_b = k + (long long)bh * Tk * D;
+  const bf16* v_b = v + (long long)bh * Tk * D;
+
+  float acc[2 * KD][4];  // output: n8 tiles over D
+#pragma unroll
+  for (int j = 0; j < 2 * KD; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float m[2] = {kMaskValue, kMaskValue};  // rows g and g + 8
+  float l[2] = {0.0f, 0.0f};              // this lane's part of the row sums
+  unsigned qf[KD][4];
+
+  if (nchunks > 0) {
+    stage_rows<D>(s_q, q_b, nr, tid, nthreads);
+    const int nk0 = min(kMmaKeys, key_hi - key_lo);
+    stage_rows<D>(s_k, k_b + (long long)key_lo * D, nk0, tid, nthreads);
+    stage_rows<D>(s_v, v_b + (long long)key_lo * D, nk0, tid, nthreads);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int kc0 = key_lo + ch * kMmaKeys;
+    const int nk = min(kMmaKeys, key_hi - kc0);  // a multiple of 16
+    if (ch + 1 < nchunks) {
+      const int kn0 = kc0 + kMmaKeys;
+      const int nkn = min(kMmaKeys, key_hi - kn0);
+      const int buf = (ch + 1) % kMmaStages;
+      stage_rows<D>(s_k + buf * kMmaKeys * DS, k_b + (long long)kn0 * D, nkn, tid, nthreads);
+      stage_rows<D>(s_v + buf * kMmaKeys * DS, v_b + (long long)kn0 * D, nkn, tid, nthreads);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const bf16* sk = s_k + (ch % kMmaStages) * kMmaKeys * DS;
+      const bf16* sv = s_v + (ch % kMmaStages) * kMmaKeys * DS;
+      const int mi = lane / 8;  // which 8 x 8 matrix this lane addresses
+      const int ri = lane % 8;  // which of its rows
+      if (ch == 0) {
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd)
+          ldmatrix_x4(qf[kd], s_q + (16 * warp + ri + 8 * (mi & 1)) * DS + 16 * kd + 8 * (mi >> 1));
+      }
+      const int ntiles = nk / 8;
+
+      // Scores: sc[n][e] is row g + 8 (e / 2), key kc0 + 8 n + 2 qd + e % 2.
+      float sc[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.0f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          if (2 * np < ntiles) {
+            unsigned b[4];
+            ldmatrix_x4(b, sk + (16 * np + ri + 8 * (mi >> 1)) * DS + 16 * kd + 8 * (mi & 1));
+            mma_bf16(sc[2 * np], qf[kd], b[0], b[1]);
+            mma_bf16(sc[2 * np + 1], qf[kd], b[2], b[3]);
+          }
+        }
+      }
+
+      // A chunk whose keys this warp's rows all see needs no mask, and its
+      // exponent is one FMA: 2^(s scale log2e - m log2e). Elsewhere the
+      // scores are scaled, masked ones set to -1e30, and the exponent is
+      // taken of the exact difference s - m, so that a row with no visible
+      // key yet has -1e30 - (-1e30) = 0 and p = 1, as in the reference.
+      const bool all_visible = (!causal || w_row >= kc0 + nk - 1) &&
+                               (window <= 0 || w_row + 15 - kc0 <= window);
+      if (!all_visible) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = w_row + g + 8 * (e >> 1);
+            const int col = kc0 + 8 * n + 2 * qd + (e & 1);
+            const bool visible = (!causal || row >= col) && (window <= 0 || row - col <= window);
+            sc[n][e] = visible ? sc[n][e] * scale : kMaskValue;
+          }
+        }
+      }
+      const float to_score = all_visible ? scale : 1.0f;  // sc's units to scores
+
+      // Online softmax in registers; a row's four lanes share m by shuffles.
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          if (n < ntiles) mx = fmaxf(mx, fmaxf(sc[n][2 * i], sc[n][2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx * to_score);  // scale > 0 keeps the max
+        const float alpha = exp2f((m[i] - m_new) * kLog2e);
+        m[i] = m_new;
+        float sum = 0.0f;
+        if (all_visible) {
+          const float c = scale * kLog2e;
+          const float off = -m_new * kLog2e;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            if (n < ntiles) {
+              sc[n][2 * i] = exp2f(fmaf(sc[n][2 * i], c, off));
+              sc[n][2 * i + 1] = exp2f(fmaf(sc[n][2 * i + 1], c, off));
+              sum += sc[n][2 * i] + sc[n][2 * i + 1];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            if (n < ntiles) {
+              sc[n][2 * i] = exp2f((sc[n][2 * i] - m_new) * kLog2e);
+              sc[n][2 * i + 1] = exp2f((sc[n][2 * i + 1] - m_new) * kLog2e);
+              sum += sc[n][2 * i] + sc[n][2 * i + 1];
+            }
+          }
+        }
+        l[i] = alpha * l[i] + sum;
+#pragma unroll
+        for (int j = 0; j < 2 * KD; ++j) {
+          acc[j][2 * i] *= alpha;
+          acc[j][2 * i + 1] *= alpha;
+        }
+      }
+
+      // acc += p (bf16, from the score registers) . v.
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        if (2 * kk < ntiles) {
+          const unsigned pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                                  pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                                  pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                                  pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+          for (int dp = 0; dp < KD; ++dp) {
+            unsigned b[4];
+            ldmatrix_x4_trans(b, sv + (16 * kk + ri + 8 * (mi & 1)) * DS + 16 * dp + 8 * (mi >> 1));
+            mma_bf16(acc[2 * dp], pa, b[0], b[1]);
+            mma_bf16(acc[2 * dp + 1], pa, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next prefetch overwrites this chunk's buffer
+  }
+
+  if (!active) return;
+  bf16* o_b = o + ((long long)bh * S + w_row) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lsum = l[i];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    const float denom = fmaxf(lsum, 1e-30f);
+    bf16* orow = o_b + (long long)(g + 8 * i) * D;
+#pragma unroll
+    for (int j = 0; j < 2 * KD; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * qd) =
+          __floats2bfloat162_rn(acc[j][2 * i] / denom, acc[j][2 * i + 1] / denom);
+  }
+}
+
+template <int D>
+int launch_mma_d(const void* q, const void* k, const void* v, void* o, int BH, int S,
+                 int Tk, int bq, int bkv, int causal, int window, float scale, void* stream) {
+  const int warps = bq / 16 < kMmaWarps ? bq / 16 : kMmaWarps;
+  const size_t smem =
+      sizeof(bf16) * (size_t)(16 * kMmaWarps + 2 * kMmaStages * kMmaKeys) * (D + 8);
+  if (smem > 48 * 1024) {  // above 48 KiB only by opting in
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long blocks = (long long)BH * (S / bq) * ((bq + 16 * warps - 1) / (16 * warps));
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  attn_mma_kernel<D><<<(unsigned)blocks, 32 * warps, smem, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), BH, S, Tk, bq, bkv, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_mma(const void* q, const void* k, const void* v, void* o, int BH, int S, int Tk,
+               int D, int bq, int bkv, int causal, int window, float scale, void* stream) {
+  if (BH == 0 || S == 0) return (int)cudaSuccess;
+  if (D <= 0 || D > kMaxHeadDim || D % 16 || bq <= 0 || bq % 16 || bkv <= 0 || bkv % 16 ||
+      S % bq || Tk % bkv)
+    return (int)cudaErrorInvalidValue;
+#define ATTN_MMA_D(N) \
+  case N:             \
+    return launch_mma_d<N>(q, k, v, o, BH, S, Tk, bq, bkv, causal, window, scale, stream);
+  switch (D) {
+    ATTN_MMA_D(16)
+    ATTN_MMA_D(32)
+    ATTN_MMA_D(48)
+    ATTN_MMA_D(64)
+    ATTN_MMA_D(80)
+    ATTN_MMA_D(96)
+    ATTN_MMA_D(112)
+    ATTN_MMA_D(128)
+  }
+#undef ATTN_MMA_D
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int BH, int S, int Tk, int D, int bq, int bkv,
-                        int causal, int window, float scale, void* stream) {
-  return launch<float>(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window, scale, stream);
+int flash_attention_simt_f32(const void* q, const void* k, const void* v, void* o,
+                             int BH, int S, int Tk, int D, int bq, int bkv,
+                             int causal, int window, float scale, void* stream) {
+  return launch_simt<float>(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window, scale, stream);
 }
 
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int BH, int S, int Tk, int D, int bq, int bkv,
-                         int causal, int window, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window,
-                               scale, stream);
+int flash_attention_simt_bf16(const void* q, const void* k, const void* v, void* o,
+                              int BH, int S, int Tk, int D, int bq, int bkv,
+                              int causal, int window, float scale, void* stream) {
+  return launch_simt<__nv_bfloat16>(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window,
+                                    scale, stream);
+}
+
+int flash_attention_mma_bf16(const void* q, const void* k, const void* v, void* o,
+                             int BH, int S, int Tk, int D, int bq, int bkv,
+                             int causal, int window, float scale, void* stream) {
+  return launch_mma(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window, scale, stream);
 }
 
 REPRO_ERROR_STRING(flash_attention)

@@ -10,8 +10,16 @@ is a copy of the JAX package's ``repro/kernels/gmm/ops.py::plan_groups``
     ``out[bm-row tile i] = x[tile i] @ w[group_of_tile[i]]``
 
 the JAX package's ``repro/kernels/gmm/kernel.py::gmm``. On CUDA tensors
-it launches the hand-written kernel ``csrc/gmm.cu`` (built at first use);
-on CPU tensors it runs the plain version
+it launches one of the hand-written kernels of ``csrc/gmm.cu`` (built at
+first use), the variant that :func:`gmm_variant` names from type and
+shape alone, before the launch:
+
+* ``wgmma`` — bf16 in, on the tensor cores (``wgmma`` fed by TMA);
+* ``regblock`` — float32 in, register-blocked on the CUDA cores;
+* ``simt`` — any other shape (a ``bm`` not a multiple of 64, K or N not
+  a multiple of 8 for bf16 or of 4 for float32), on the CUDA cores.
+
+On CPU tensors it runs the plain version
 :func:`repro_torch.kernels.gmm.ref.gmm_plain`. There is no other path: a
 tensor elsewhere raises.
 """
@@ -26,17 +34,36 @@ import torch
 from repro_torch.kernels.build import load
 from repro_torch.kernels.gmm.ref import gmm_plain
 
-__all__ = ["gmm", "grouped_matmul", "plan_groups"]
+__all__ = ["VARIANTS", "gmm", "gmm_variant", "grouped_matmul", "plan_groups"]
 
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+VARIANTS = ("wgmma", "regblock", "simt")
+
+
+def gmm_variant(dtype: torch.dtype, bm: int, k: int, n: int) -> str:
+    """The CUDA kernel that takes inputs of ``dtype`` with row tile ``bm``
+    and ``K``, ``N``: ``wgmma`` for bf16 with ``bm % 64 == 0`` and K, N
+    multiples of 8 (TMA's 16-byte row strides); ``regblock`` for float32
+    with ``bm % 64 == 0`` and K, N multiples of 4 (16-byte ``cp.async``);
+    ``simt`` otherwise. Pure: type and shape alone decide."""
+    if bm % 64 == 0 and dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    if bm % 64 == 0 and dtype == torch.float32 and k % 4 == 0 and n % 4 == 0:
+        return "regblock"
+    return "simt"
 
 
 def _library() -> ctypes.CDLL:
     lib = load("gmm")
     for tin in _TYPES.values():
         for tout in _TYPES.values():
-            fn = getattr(lib, f"gmm_{tin}_{tout}")
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn = getattr(lib, f"gmm_simt_{tin}_{tout}")
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    for tout in _TYPES.values():
+        for name in (f"gmm_wgmma_bf16_{tout}", f"gmm_regblock_f32_{tout}"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
     lib.gmm_error_string.argtypes = [ctypes.c_int]
     lib.gmm_error_string.restype = ctypes.c_char_p
@@ -60,8 +87,10 @@ def grouped_matmul(
     (``K % bk == 0``, ``N % bn == 0``) as the reference asserts them,
     and the CUDA kernel tiles K and N its own way. ``bm`` must be a
     multiple of 8, as the reference's TPU tiling needs too. CUDA tensors
-    launch the kernel on the current stream and add one to
-    ``grouped_matmul.launches``; CPU tensors run the plain version."""
+    launch the kernel that :func:`gmm_variant` names on the current stream
+    and add one to ``grouped_matmul.launches`` and to that variant's
+    ``grouped_matmul.variant_launches``; CPU tensors run the plain
+    version."""
     if x.dim() != 2 or w.dim() != 3:
         raise ValueError(f"x must be [M, K] and w [E, K, N], got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
@@ -98,21 +127,24 @@ def grouped_matmul(
     w = w.contiguous()
     group = group_of_tile.to(torch.int32).contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    variant = gmm_variant(x.dtype, bm, kdim, n)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"gmm_{_TYPES[x.dtype]}_{_TYPES[out_dtype]}")(
+        rc = getattr(lib, f"gmm_{variant}_{_TYPES[x.dtype]}_{_TYPES[out_dtype]}")(
             x.data_ptr(), w.data_ptr(), group.data_ptr(), out.data_ptr(),
-            m, kdim, n, bm, stream,
+            m, kdim, n, e, bm, stream,
         )
     if rc != 0:
         msg = lib.gmm_error_string(rc).decode()
-        raise RuntimeError(f"gmm launch failed: {msg} (cudaError {rc})")
+        raise RuntimeError(f"gmm launch failed ({variant}): {msg} (cudaError {rc})")
     grouped_matmul.launches += 1
+    grouped_matmul.variant_launches[variant] += 1
     return out
 
 
 grouped_matmul.launches = 0
+grouped_matmul.variant_launches = dict.fromkeys(VARIANTS, 0)
 gmm = grouped_matmul  # the reference's name (repro/kernels/gmm/__init__.py)
 
 

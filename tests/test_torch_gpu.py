@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from repro_torch.api import Topology, distribute
-from repro_torch.kernels.attn import attention_plain, flash_attention, mha
-from repro_torch.kernels.gmm import gmm_plain, grouped_matmul, plan_groups
+from repro_torch.kernels.attn import attention_plain, attention_variant, flash_attention, mha
+from repro_torch.kernels.gmm import gmm_plain, gmm_variant, grouped_matmul, plan_groups
 from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles
 from repro_torch.sparse.generate import banded_coo
 
@@ -83,8 +83,13 @@ GMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 8e-2}
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 
 
+# The reference tests' shapes (simt), then shapes of the wgmma (bf16) and
+# regblock (float32) variants: N not a multiple of 256, 64-row blocks with a
+# ragged N, the granite widths, K not a multiple of 64.
 @pytest.mark.parametrize("e,k,n,bm", [(4, 32, 64, 8), (8, 64, 128, 16), (2, 16, 16, 8),
-                                      (3, 256, 320, 128)])
+                                      (3, 256, 320, 128), (8, 256, 384, 128),
+                                      (4, 512, 192, 64), (32, 1024, 512, 128),
+                                      (4, 80, 256, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_gmm_kernel_matches_plain(cuda, e, k, n, bm, dtype, out_dtype):
@@ -94,8 +99,11 @@ def test_gmm_kernel_matches_plain(cuda, e, k, n, bm, dtype, out_dtype):
     w = torch.as_tensor(rng.standard_normal((e, k, n)), device=cuda).to(dtype)
     gid = torch.as_tensor(rng.integers(0, e, size=m_tiles), dtype=torch.int32, device=cuda)
     before = grouped_matmul.launches
+    variant = gmm_variant(dtype, bm, k, n)
+    before_variant = grouped_matmul.variant_launches[variant]
     y = grouped_matmul(x, w, gid, bm=bm, bk=16, bn=16, out_dtype=out_dtype)
     assert grouped_matmul.launches == before + 1
+    assert grouped_matmul.variant_launches[variant] == before_variant + 1
     assert y.dtype == out_dtype and y.shape == (m_tiles * bm, n)
     y_plain = gmm_plain(x, w, gid, bm=bm, out_dtype=out_dtype)
     tol = max(GMM_TOL[dtype], GMM_TOL[out_dtype])
@@ -120,21 +128,30 @@ def test_gmm_dispatch_on_the_card(cuda):
                                    rtol=2e-4, atol=2e-4)
 
 
+# T < S with a window leaves rows that see no key: (128, 32, 32, 16) with
+# (True, 8), (64, 32, 16, 16) with (False, 8), (128, 32, 16, 16) with
+# (True, 4). D 24 runs bf16 on the simt variant.
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 8), (True, 32),
-                                           (False, 16)])
+                                           (False, 16), (False, 8), (True, 4)])
 @pytest.mark.parametrize("s,t,bq,bkv", [(64, 64, 16, 16), (128, 128, 32, 16),
-                                        (256, 256, 128, 128), (128, 256, 64, 32)])
-@pytest.mark.parametrize("d", [16, 64, 80, 128])
+                                        (256, 256, 128, 128), (128, 256, 64, 32),
+                                        (128, 32, 32, 16), (64, 32, 16, 16), (128, 32, 16, 16)])
+@pytest.mark.parametrize("d", [16, 24, 64, 80, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain(cuda, causal, window, s, t, bq, bkv, d, dtype):
     rng = np.random.default_rng(s + d + window)
     q, k, v = (torch.as_tensor(rng.standard_normal((3, n, d)), device=cuda).to(dtype)
                for n in (s, t, t))
     before = flash_attention.launches
+    variant = attention_variant(dtype, d, bq, bkv)
+    before_variant = flash_attention.variant_launches[variant]
     o = flash_attention(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv)
     assert flash_attention.launches == before + 1
+    assert flash_attention.variant_launches[variant] == before_variant + 1
     assert o.dtype == dtype and o.shape == q.shape
-    o_plain = attention_plain(q, k, v, causal=causal, window=window)
+    # The plain version with the kernel's tiles: a row whose tile visits no
+    # key is 0, one whose visited keys are all masked their mean of v.
+    o_plain = attention_plain(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv)
     torch.testing.assert_close(o.float(), o_plain.float(), rtol=ATTN_TOL[dtype],
                                atol=ATTN_TOL[dtype])
     assert torch.equal(o, mha(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv))

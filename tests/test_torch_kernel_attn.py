@@ -14,9 +14,11 @@ import torch
 
 from repro.kernels.attn import flash_attention as jx_flash_attention
 from repro.kernels.attn import mha as jx_mha
+from repro.kernels.attn.ref import attention_ref as jx_attention_ref
 from repro_torch.kernels.attn import (
     attention_mask,
     attention_plain,
+    attention_variant,
     flash_attention,
     mha,
     visited_tiles,
@@ -72,6 +74,65 @@ def test_attention_wider_cases_match_pallas(dtype, causal, window, s, t, bq, bkv
     q, k, v = _qkv(2, s, t, 80, seed=s + t + window)
     o_jx, o_pt = _both(q, k, v, dtype, causal=causal, window=window, bq=bq, bkv=bkv)
     np.testing.assert_allclose(o_pt, o_jx, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# T < S with a window: rows from T + window on see no key, and some of
+# them no visited tile either (S, T, bq, bkv, causal, window).
+NO_KEY_CASES = [(128, 32, 32, 16, True, 8), (64, 32, 16, 16, False, 8),
+                (128, 32, 16, 16, True, 4)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,t,bq,bkv,causal,window", NO_KEY_CASES)
+def test_rows_that_see_no_key_match_pallas(dtype, s, t, bq, bkv, causal, window):
+    """A row whose visited keys are all masked is the mean of v over them,
+    a row with no visited tile is 0: what the tiled kernel computes."""
+    q, k, v = _qkv(2, s, t, 80, seed=s + t + window)
+    o_jx, o_pt = _both(q, k, v, dtype, causal=causal, window=window, bq=bq, bkv=bkv)
+    np.testing.assert_allclose(o_pt, o_jx, rtol=TOL[dtype], atol=TOL[dtype])
+    blind = ~attention_mask(s, t, causal=causal, window=window).numpy().any(axis=1)
+    assert blind[t + window:].all() and not blind[:t + window].any()
+
+
+def test_dense_plain_is_still_the_oracle():
+    """Without tiles, ``attention_plain`` is the dense oracle ``attention_ref``
+    on the same inputs, blind rows included."""
+    for s, t, bq, bkv, causal, window in NO_KEY_CASES:
+        q, k, v = _qkv(2, s, t, 80, seed=s + t + window)
+        o_ref = np.asarray(jx_attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                            causal=causal, window=window))
+        o_pt = attention_plain(*(torch.as_tensor(a) for a in (q, k, v)), causal=causal,
+                               window=window, bq=None, bkv=None).numpy()
+        np.testing.assert_allclose(o_pt, o_ref, rtol=2e-5, atol=2e-5)
+
+
+def test_plain_wants_both_tiles_or_neither():
+    q, k, v = (torch.zeros((1, 32, 16)) for _ in range(3))
+    with pytest.raises(ValueError, match="both"):
+        attention_plain(q, k, v, bq=16)
+    with pytest.raises(ValueError, match="multiples"):
+        attention_plain(q, k, v, bq=24, bkv=16)
+
+
+# Every shape the card runs (chip_smoke.py's sweep and [lm kernels],
+# tests/test_torch_gpu.py), with the variant it must take:
+# (dtype, D, bq, bkv, variant).
+VARIANT_CASES = [
+    *[(dt, d, bq, bkv, "mma" if dt == "bfloat16" else "simt")
+      for dt in ("float32", "bfloat16") for d in (16, 64, 80, 128)
+      for bq, bkv in ((16, 16), (32, 16), (64, 64), (128, 128), (32, 64), (64, 32))],
+    ("bfloat16", 64, 128, 128, "mma"),  # granite-moe-1b-a400m causal prefill
+    ("bfloat16", 80, 128, 128, "mma"),  # h2o-danube-1.8b window prefill
+    ("bfloat16", 24, 16, 16, "simt"),  # D not a multiple of 16
+    ("bfloat16", 64, 8, 16, "simt"),  # bq not a multiple of 16
+    ("bfloat16", 64, 16, 8, "simt"),  # bkv not a multiple of 16
+    ("bfloat16", 144, 16, 16, "simt"),  # D past 128 (the wrapper refuses it on the card)
+]
+
+
+@pytest.mark.parametrize("dtype,d,bq,bkv,variant", VARIANT_CASES)
+def test_attention_variant(dtype, d, bq, bkv, variant):
+    assert attention_variant(PT[dtype], d, bq, bkv) == variant
 
 
 def test_banded_blocks_are_skipped_semantically():
@@ -141,7 +202,7 @@ def test_flash_attention_is_the_plain_version_on_cpu():
     before = flash_attention.launches
     o = flash_attention(q, k, v, causal=True, window=4, bq=16, bkv=16)
     assert flash_attention.launches == before  # no kernel launched on the CPU
-    assert torch.equal(o, attention_plain(q, k, v, causal=True, window=4))
+    assert torch.equal(o, attention_plain(q, k, v, causal=True, window=4, bq=16, bkv=16))
 
 
 @pytest.mark.parametrize("case", [

@@ -13,7 +13,7 @@ import torch
 
 from repro.kernels.gmm import grouped_matmul as jx_grouped_matmul
 from repro.kernels.gmm import plan_groups as jx_plan_groups
-from repro_torch.kernels.gmm import gmm, gmm_plain, grouped_matmul, plan_groups
+from repro_torch.kernels.gmm import gmm, gmm_plain, gmm_variant, grouped_matmul, plan_groups
 
 TOL = {"float32": 2e-4, "bfloat16": 8e-2}
 JX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -115,6 +115,33 @@ def test_gmm_end_to_end_dispatch():
         np.testing.assert_allclose(y[pos], x_tok[tok] @ w[expert_of_token[tok]],
                                    rtol=2e-4, atol=2e-4)
     assert not y[~valid].any()  # padding rows are zero in, zero out
+
+
+# Every shape the card runs (chip_smoke.py's sweep and [lm kernels],
+# tests/test_torch_gpu.py) as (e, k, n, bm), with the variant each input
+# type must take: (bm, k, n, bf16 variant, float32 variant).
+VARIANT_CASES = [
+    (8, 32, 64, "simt", "simt"),  # the reference tests' shapes
+    (16, 64, 128, "simt", "simt"),
+    (8, 16, 16, "simt", "simt"),
+    (128, 256, 384, "wgmma", "regblock"),  # N not a multiple of 256
+    (64, 512, 192, "wgmma", "regblock"),  # 64-row blocks, ragged N
+    (128, 1024, 512, "wgmma", "regblock"),  # granite gate and up
+    (128, 512, 1024, "wgmma", "regblock"),  # granite down
+    (128, 80, 256, "wgmma", "regblock"),  # K not a multiple of 64
+    (128, 256, 320, "wgmma", "regblock"),
+    (16, 64, 96, "simt", "simt"),
+    (192, 64, 64, "wgmma", "regblock"),  # bm = 3 x 64
+    (96, 64, 64, "simt", "simt"),  # bm not a multiple of 64
+    (128, 84, 64, "simt", "regblock"),  # K not a multiple of 8
+    (128, 64, 90, "simt", "simt"),  # N neither
+]
+
+
+@pytest.mark.parametrize("bm,k,n,bf16,f32", VARIANT_CASES)
+def test_gmm_variant(bm, k, n, bf16, f32):
+    assert gmm_variant(torch.bfloat16, bm, k, n) == bf16
+    assert gmm_variant(torch.float32, bm, k, n) == f32
 
 
 def test_gmm_is_the_plain_version_on_cpu():
