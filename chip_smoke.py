@@ -12,21 +12,23 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    started together, with ``-Xptxas -v``'s registers and spills;
 3. **kernel** — every kernel against its plain PyTorch version on the
    card over a sweep of shapes and types, two launches bitwise equal:
-   ``bell_spmm`` over tile shapes and batch widths (column j of a B = 8
-   result bitwise the B = 1 result on column j), ``gmm`` over the
+   ``bell_spmm`` over tile shapes (up to 32 × 32 on its ``stream``
+   variant, larger on ``simt``) and batch widths (column j of every B
+   bitwise the B = 1 launch on column j, and a ``stream`` result bitwise
+   the ``simt`` kernel's on the same inputs), ``gmm`` over the
    reference tests' shapes and shapes that reach its ``wgmma`` and
    ``regblock`` variants × {f32, bf16} in × {f32, bf16} out,
    ``flash_attention`` over the reference tests' masks and tiles × D in
    {16, 80} × {f32, bf16}, D in {64, 128} at 128 × 128 tiles, T ≠ S
-   cases (one with rows that see no key) and a bf16 shape of the
-   ``simt`` variant, held against the plain version with the kernel's
-   tiles; every variant of each kernel must have run;
+   cases (rows that see no key, on every variant) and a shape of the
+   ``simt`` variant in each type, held against the plain version with
+   the kernel's tiles; every variant of each kernel must have run;
 4. **main path** — ``distribute`` → ``spmv`` → ``solve`` at the repo's
    headline scale config (banded 60,000 × 60,000 with 1.2 M non-zeros,
    ``Topology(4, 4)``, ``NL-HC``, block 16, seed 0) for the replicated,
    selective and ``overlap:2`` exchanges, held against the float64 CSR
    ``reference`` executor; each kernel's launch counter, set to 0 just
-   before a path runs, must have risen on it;
+   before a path runs, must have risen on it, on ``stream`` alone;
 5. **lm kernels** — the other two kernels on their own entry points at
    the full width of the repo's language-model configs: the MoE expert
    FFN of granite-moe-1b-a400m (``plan_groups`` → gather → three
@@ -36,12 +38,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (bf16 attention also to 2⁻⁶·|ref| + 2e-3 elementwise); each launch
    counter, set to 0 just before its path, must have risen on it, and
    so must the per-variant counts of the tensor-core variants (bf16) and
-   of the register-blocked ``gmm`` (f32), never those of ``simt``;
+   of the register-blocked ones (f32), never those of ``simt``;
 6. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, the ``simt`` variant's time
-   at the same shapes (the kernels of the previous slice, compared within
-   the run), and the spmv wall time and peak device memory per exchange.
+   at the same shapes (the kernels of the previous slices, compared within
+   the run), the spmv wall time and peak device memory per exchange, the
+   shares of the replicated spmv's device time taken by the kernel and by
+   the unit sum, and — a measurement, not a check — whether column j of
+   the replicated spmv at B = 64 is bitwise the B = 1 spmv.
 
 Then one JSON line with the kernels' numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. With no CUDA device the
@@ -77,7 +82,8 @@ TOL_F16 = 2e-2  # float16 tiles and x, float32 accumulation
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
-KERNEL_SWEEP = ((8, 8), (8, 16), (16, 16), (8, 128), (128, 128))
+# Tile shapes of the stream variant (bm, bn <= 32), then of simt.
+KERNEL_SWEEP = ((8, 8), (8, 16), (16, 16), (32, 32), (8, 128), (128, 128))
 SWEEP_BATCHES = (1, 3, 8, 64)
 # The reference tests' tolerances, as rtol and atol: tests/test_kernels_gmm.py
 # and tests/test_kernels_attn.py.
@@ -96,10 +102,12 @@ ATTN_TILES = ((64, 16, 16), (128, 32, 16), (64, 64, 64))
 # Further (causal, window, s, t, bq, bkv, d): D 64 and 128 at 128 × 128
 # tiles; T ≠ S; T < S with a window, so rows from T + window on see no key
 # (the plain version with the kernel's tiles is what the kernels compute
-# there); D 24, which bf16 runs on the simt variant.
+# there); D 24, which both types run on the simt variant; T < S with rows
+# that see no key at 64 × 64 tiles, which float32 runs on regblock.
 ATTN_EXTRA = ((True, 0, 256, 256, 128, 128, 64), (True, 32, 256, 256, 128, 128, 128),
               (False, 0, 256, 256, 128, 128, 128), (True, 16, 64, 192, 32, 64, 80),
-              (True, 8, 128, 32, 32, 16, 80), (True, 8, 64, 64, 16, 16, 24))
+              (True, 8, 128, 32, 32, 16, 80), (True, 8, 64, 64, 16, 16, 24),
+              (True, 8, 256, 64, 64, 64, 80), (True, 4, 256, 64, 128, 64, 64))
 # bf16 attention on the [lm attn] path: two bf16 ulps of the result plus a
 # floor, elementwise, against the plain version with the kernel's tiles.
 ATTN_BF16_REL, ATTN_BF16_ABS = 2.0**-6, 2e-3
@@ -213,22 +221,46 @@ def random_tile_set(rng, u_n, nrb, bm, bn, nsrc, t_max):
     return tiles, rows, src, counts
 
 
+def spmm_simt(bt, xsrc) -> torch.Tensor:
+    """The ``simt`` kernel on the same tile set and x, by its C entry
+    point (the wrapper would choose ``stream`` at these shapes): the
+    previous slice's kernel, for the cross-variant checks and times."""
+    from repro_torch.kernels.spmv.ops import _library
+
+    u_n, t_n, bm, bn = bt.tiles.shape
+    batch = int(xsrc.shape[3])
+    out = torch.empty((u_n, bt.nrb, bm, batch), dtype=torch.float32, device=bt.tiles.device)
+    ustride = 0 if xsrc.shape[0] == 1 else int(xsrc.shape[1]) * bn * batch
+    name = "f16" if bt.tiles.dtype == torch.float16 else "f32"
+    rc = getattr(_library(), f"bell_spmm_simt_{name}")(
+        bt.tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(), xsrc.data_ptr(),
+        out.data_ptr(), u_n, t_n, bt.nrb, bm, bn, batch, ustride,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"bell_spmm_simt_{name} launch failed ({rc})")
+    return out
+
+
 def phase_kernel(device) -> None:
-    from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles
+    from repro_torch.kernels.spmv import (
+        VARIANTS,
+        bell_spmm,
+        bell_spmm_plain,
+        bell_tiles,
+        spmm_variant,
+    )
 
     rng = np.random.default_rng(0)
     worst = 0.0
+    before = dict(bell_spmm.variant_launches)
     for bm, bn in KERNEL_SWEEP:
         tiles, rows, src, counts = random_tile_set(rng, 4, 24, bm, bn, 30, 40)
         for dtype, tol in ((torch.float32, TOL_F32), (torch.float16, TOL_F16)):
             bt = bell_tiles(torch.as_tensor(tiles, device=device).to(dtype),
                             rows, src, counts, 24)
-            for b in SWEEP_BATCHES:
-                for ux in (4, 1):  # per-unit sources, and one shared source
-                    x = torch.as_tensor(
-                        rng.standard_normal((ux, 30, bn, b)).astype(np.float32),
-                        device=device,
-                    ).to(dtype)
+            for ux in (4, 1):  # per-unit sources, and one shared source
+                xs = {b: torch.as_tensor(rng.standard_normal((ux, 30, bn, b)).astype(
+                    np.float32), device=device).to(dtype) for b in SWEEP_BATCHES}
+                for b, x in xs.items():
                     y = bell_spmm(bt, x)
                     y_plain = bell_spmm_plain(bt.tiles, bt.tile_row, bt.tile_src,
                                               bt.counts, x, bt.nrb)
@@ -240,14 +272,21 @@ def phase_kernel(device) -> None:
                         worst = max(worst, err)
                     check(torch.equal(y, bell_spmm(bt, x)),
                           f"two launches differ ({bm},{bn}) B={b} {dtype}")
-                    if b == 8:
-                        for j in range(b):
-                            y1 = bell_spmm(bt, x[..., j:j + 1].contiguous())
-                            check(torch.equal(y[..., j:j + 1], y1),
-                                  f"column {j} of B=8 is not the B=1 result "
-                                  f"({bm},{bn}) {dtype}")
-        log(f"[kernel] bell_spmm ({bm},{bn}) B in {SWEEP_BATCHES}, f32 + f16: ok")
-    log(f"[kernel] bell_spmm worst f32 scaled |kernel - plain| = {worst:.3e}")
+                    # One FMA chain in every variant and patch: column j of
+                    # any B is bitwise the B = 1 launch, and stream is simt.
+                    for j in range(b):
+                        y1 = bell_spmm(bt, x[..., j:j + 1].contiguous())
+                        check(torch.equal(y[..., j:j + 1], y1),
+                              f"column {j} of B={b} is not the B=1 result ({bm},{bn}) {dtype}")
+                    if spmm_variant(dtype, bm, bn, b) == "stream":
+                        check(torch.equal(y, spmm_simt(bt, x)),
+                              f"stream and simt differ ({bm},{bn}) B={b} {dtype}")
+        log(f"[kernel] bell_spmm ({bm},{bn}) B in {SWEEP_BATCHES}, f32 + f16, "
+            f"{spmm_variant(torch.float32, bm, bn, 1)}: ok")
+    ran = {v: bell_spmm.variant_launches[v] - before[v] for v in VARIANTS}
+    check(all(ran.values()), f"bell_spmm sweep left a variant unlaunched: {ran}")
+    log(f"[kernel] bell_spmm worst f32 scaled |kernel - plain| = {worst:.3e}; "
+        f"launches by variant {ran}")
 
 
 def phase_kernel_gmm(device) -> None:
@@ -401,9 +440,11 @@ def phase_main_path(device) -> dict:
     log(f"[main] plan: tiles {list(dp.tiles.shape)}, real {int(dp.real_tiles.sum())}, "
         f"{dp.tiles.nbytes / 1e6:.1f} MB payload")
 
-    out = {"launches": 0, "sessions": {}}
+    out = {"launches": 0, "variant_launches": dict.fromkeys(bell_spmm.variant_launches, 0),
+           "sessions": {}}
     for ex in EXCHANGES:
         bell_spmm.launches = 0
+        bell_spmm.variant_launches = dict.fromkeys(bell_spmm.variant_launches, 0)
         t0 = time.perf_counter()
         sess = distribute(a, exchange=ex, **common)  # on the card by default
         spd_sess = distribute(spd, exchange=ex, **common)
@@ -425,10 +466,15 @@ def phase_main_path(device) -> dict:
             check(err < 1e-4, f"{ex}: cg device_loop={device_loop} x off by {err:.2e}")
         torch.cuda.synchronize()
         launches = bell_spmm.launches
+        by_variant = dict(bell_spmm.variant_launches)
         check(launches > 0, f"{ex}: bell_spmm was never launched on the main path")
+        check(by_variant["stream"] == launches and by_variant["simt"] == 0,
+              f"{ex}: the main path did not run on the stream variant alone: {by_variant}")
         log(f"[main] {ex}: planning {t_plan:.1f} s, spmv + power_iteration + pagerank + "
-            f"cg (host and device loops) ok; bell_spmm launches {launches}")
+            f"cg (host and device loops) ok; bell_spmm launches {launches} {by_variant}")
         out["launches"] += launches
+        for v, c in by_variant.items():
+            out["variant_launches"][v] += c
         out["sessions"][ex] = sess
     return out
 
@@ -595,9 +641,9 @@ def phase_lm_attention(device) -> dict:
         launches = flash_attention.launches
         by_variant = dict(flash_attention.variant_launches)
         check(launches > 0, f"flash_attention was never launched on {name} ({dtype})")
-        if dtype == torch.bfloat16:
-            check(by_variant["mma"] == launches and by_variant["simt"] == 0,
-                  f"{name} (bf16) did not run on the mma variant alone: {by_variant}")
+        new = "mma" if dtype == torch.bfloat16 else "regblock"
+        check(by_variant[new] == launches and by_variant["simt"] == 0,
+              f"{name} ({dtype}) did not run on the {new} variant alone: {by_variant}")
         check(bool(torch.isfinite(o).all()) and o.shape == q.shape and o.dtype == dtype,
               f"{name} ({dtype}): output non-finite or misshapen")
         rows = torch.linspace(0, bh - 1, 4, device=device).long()  # 4 of the BH rows, full S
@@ -656,7 +702,7 @@ def bsr_library_ms(bt, xb, reps):
 
 
 def phase_times(main: dict, card: dict, device) -> list:
-    from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles
+    from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles, spmm_variant
     from repro_torch.pmvc.dist import hoist_tiles, pad_x
 
     sess = main["sessions"]["replicated"]
@@ -676,6 +722,10 @@ def phase_times(main: dict, card: dict, device) -> list:
         xsrc = xb[None]
         reps = 20
         ms = cuda_ms(lambda: bell_spmm(bt, xsrc), reps)
+        old_ms = cuda_ms(lambda: spmm_simt(bt, xsrc), reps)
+        partials = bell_spmm(bt, xsrc)
+        sum_ms = cuda_ms(lambda: partials.sum(dim=0), reps)  # the executor's unit sum
+        del partials
         plain_ms = cuda_ms(lambda: bell_spmm_plain(bt.tiles, bt.tile_row, bt.tile_src,
                                                    bt.counts, xsrc, nrb), 5, warmup=1)
         lib_ms, lib_name = bsr_library_ms(bt, xb, reps)
@@ -692,22 +742,41 @@ def phase_times(main: dict, card: dict, device) -> list:
         t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
         t_flops = flops / PEAK_F32_FLOPS * 1e3
         bound_ms = max(t_bytes, t_flops)
-        rows.append({"B": b, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        variant = spmm_variant(bt.tiles.dtype, bm, bn, b)
+        rows.append({"B": b, "variant": variant, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
                      "bound_by": "bytes" if t_bytes >= t_flops else "operations",
                      "library_ms": lib_ms, "library_call": lib_name,
-                     "max_abs_err": err, "bytes": bytes_moved, "flops": flops})
+                     "max_abs_err": err, "bytes": bytes_moved, "flops": flops,
+                     "simt_ms": old_ms, "sum_ms": sum_ms})
         log(f"[times] bell_spmm U={u_n} T={bt.tiles.shape[1]} real={real} ({bm}x{bn}) "
-            f"B={b}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"B={b}: kernel ({variant}) {ms:.4f} ms, simt variant {old_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms "
             f"({rows[-1]['bound_by']}; {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
             f"{bound_ms / ms:.1%} of bound, plain {plain_ms:.4f} ms, "
             f"{lib_name} {lib_ms:.4f} ms, max |kernel - plain| {err:.3e} [{where}]")
 
+    by_b = {r["B"]: r for r in rows}
     for ex, s in main["sessions"].items():
         mv = s.device_spmm()
         for b in SPMV_BATCHES:
             x_np = rng.standard_normal((b, dp.shape[1])).astype(np.float32)
             x = torch.as_tensor(x_np, device=device)
             dev_ms = cuda_ms(lambda: mv(x), 10)
+            if ex == "replicated":
+                r = by_b[b]
+                log(f"[times] spmv replicated B={b}: of its device time {dev_ms:.4f} ms the "
+                    f"kernel takes {r['ms'] / dev_ms:.1%} ({r['ms']:.4f} ms), the unit sum "
+                    f"partials.sum(dim=0) {r['sum_ms'] / dev_ms:.1%} ({r['sum_ms']:.4f} ms), "
+                    f"the rest (padding x, unblocking y) "
+                    f"{(dev_ms - r['ms'] - r['sum_ms']) / dev_ms:.1%} [{where}]")
+            else:
+                r = by_b[b]
+                log(f"[times] spmv {ex} B={b}: device {dev_ms:.4f} ms less the replicated "
+                    f"kernel and unit sum ({r['ms'] + r['sum_ms']:.4f} ms) leaves "
+                    f"{dev_ms - r['ms'] - r['sum_ms']:.4f} ms "
+                    f"({(dev_ms - r['ms'] - r['sum_ms']) / dev_ms:.1%}) for the emulated "
+                    f"exchange [{where}]")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -718,6 +787,14 @@ def phase_times(main: dict, card: dict, device) -> list:
             peak = torch.cuda.max_memory_allocated() / 2**20
             log(f"[times] spmv {ex} B={b}: device {dev_ms:.4f} ms, wall {wall_ms:.3f} ms "
                 f"(numpy in and out), peak device memory {peak:.0f} MiB [{where}]")
+    # A measurement for the serving path, not a check: is the whole spmv,
+    # unit sum included, column-stable in B on CUDA?
+    mv = main["sessions"]["replicated"].device_spmm()
+    x = torch.as_tensor(rng.standard_normal((64, dp.shape[1])).astype(np.float32), device=device)
+    y = mv(x)
+    same = sum(bool(torch.equal(y[j:j + 1], mv(x[j:j + 1]))) for j in range(64))
+    log(f"[times] spmv replicated: column j of B=64 bitwise the B=1 spmv for {same} of 64 "
+        f"columns (partials.sum(dim=0) on CUDA) [{where}]")
     return rows
 
 
@@ -872,7 +949,8 @@ def phase_times_attn(attn: dict, card: dict) -> list:
         old_ms = ms
         if variant != "simt":
             o = torch.empty_like(q)
-            old_ms = simt_ms("attn", "flash_attention_simt_bf16", q, k, v, o, bh, s, s, d,
+            tname = "bf16" if q.dtype == torch.bfloat16 else "f32"
+            old_ms = simt_ms("attn", f"flash_attention_simt_{tname}", q, k, v, o, bh, s, s, d,
                              kw["bq"], kw["bkv"], 1, kw["window"], ctypes.c_float(d**-0.5))
             del o
         lib_ms, backend, failed = sdpa_ms(q, k, v, s, kw["window"], run["heads"])
@@ -925,6 +1003,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/bell_spmm.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:74",
         "launches": main_path["launches"],
+        "variant": head["variant"],
+        "variant_launches": main_path["variant_launches"],
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -932,6 +1012,7 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "library_call": head["library_call"],
+        "simt_ms": head["simt_ms"],
     }]
     for name, source, replaces, path, r in (
         ("gmm", "src/repro_torch/kernels/csrc/gmm.cu", "src/repro/kernels/gmm/kernel.py:53",

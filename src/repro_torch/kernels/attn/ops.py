@@ -9,7 +9,9 @@ from type and shape alone, before the launch:
 
 * ``mma`` — bf16 with D, ``bq`` and ``bkv`` multiples of 16, on the
   tensor cores (``mma.sync.m16n8k16``);
-* ``simt`` — float32, and any other bf16 shape, on the CUDA cores.
+* ``regblock`` — float32 with D a multiple of 16 and ``bq``, ``bkv``
+  multiples of 64, register-blocked on the CUDA cores;
+* ``simt`` — any other float32 or bf16 shape, on the CUDA cores.
 
 On CPU tensors it runs the plain version
 :func:`repro_torch.kernels.attn.ref.attention_plain`. There is no other
@@ -29,25 +31,29 @@ from repro_torch.kernels.build import load
 __all__ = ["VARIANTS", "attention_variant", "flash_attention", "mha", "visited_tiles"]
 
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-VARIANTS = ("mma", "simt")
+VARIANTS = ("mma", "regblock", "simt")
 MAX_HEAD_DIM = 128  # the CUDA kernels' limit (csrc/flash_attention.cu)
 
 
 def attention_variant(dtype: torch.dtype, d: int, bq: int, bkv: int) -> str:
     """The CUDA kernel that takes inputs of ``dtype`` with head dim ``d``
     and tiles ``bq``, ``bkv``: ``mma`` for bf16 when all three are
-    multiples of 16 (``d`` up to 128), ``simt`` otherwise. Pure: type and
-    shape alone decide."""
-    if (dtype == torch.bfloat16 and d % 16 == 0 and d <= MAX_HEAD_DIM and bq % 16 == 0
-            and bkv % 16 == 0):
+    multiples of 16, ``regblock`` for float32 when ``d`` is a multiple of
+    16 and ``bq``, ``bkv`` multiples of 64 (``d`` up to 128 for both),
+    ``simt`` otherwise. Pure: type and shape alone decide."""
+    if d % 16 or d > MAX_HEAD_DIM:
+        return "simt"
+    if dtype == torch.bfloat16 and bq % 16 == 0 and bkv % 16 == 0:
         return "mma"
+    if dtype == torch.float32 and bq % 64 == 0 and bkv % 64 == 0:
+        return "regblock"
     return "simt"
 
 
 def _library() -> ctypes.CDLL:
     lib = load("flash_attention")
     for name in ("flash_attention_simt_f32", "flash_attention_simt_bf16",
-                 "flash_attention_mma_bf16"):
+                 "flash_attention_mma_bf16", "flash_attention_regblock_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p,

@@ -10,7 +10,7 @@
 // (window <= 0 or s - t <= window). Keys are indexed from 0 for any T; with
 // causal off, later keys stay visible. The output is in q's type.
 //
-// Both variants keep the reference's semantics exactly where they are
+// Every variant keeps the reference's semantics exactly where they are
 // subtle:
 //   * the q axis is cut into the caller's bq tiles and the key axis into bkv
 //     tiles; a (bq x bkv) tile with no visible pair is skipped by the same
@@ -47,8 +47,20 @@
 //     the PV product as the bf16 A operand straight from those registers.
 //     Chunks are a coarser grouping of the same ascending walk; the -1e30
 //     arithmetic above holds for any grouping.
-//   * `simt` (float32, and bf16 shapes the `mma` variant does not take), the
-//     first kernel of the port, on the CUDA cores (67 TFLOP/s float32 FMA):
+//   * `regblock` (float32, D a multiple of 16 up to 128, bq and bkv
+//     multiples of 64), on the CUDA cores (67 TFLOP/s float32 FMA). A block
+//     owns a whole bq tile where 128 rows divide it (else 64 rows), so each
+//     key and value chunk is staged once per q tile. q is staged once;
+//     keys and values arrive in 32-key chunks through a double-buffered
+//     cp.async ring, rows padded to D + 4 floats so the eight rows a
+//     quarter-warp reads at one d fall on distinct banks. A thread owns 8
+//     rows x 4 keys of a chunk's scores in registers (8 + 4 float4 shared
+//     loads feed 128 FMAs), the row max and sum go over the row's 8 lanes by
+//     a fixed xor shuffle, and p crosses shared memory once, transposed, for
+//     the PV product, where a thread owns its 8 rows x 2 columns of each
+//     16-column strip of D (five strips at D = 80). Two barriers a chunk.
+//   * `simt` (float32 and bf16 shapes the other variants do not take), the
+//     first kernel of the port, on the CUDA cores:
 //     a block owns 32 rows of one bq tile (a bq tile of 128 rows is four
 //     blocks) and walks that tile's visited kv tiles; q rows stay in shared
 //     memory, transposed; keys and values are staged in chunks of 64 rows;
@@ -58,11 +70,13 @@
 //     patch of scores and a 4 x ceil(D / 16) patch of the PV product. Any D
 //     up to 128 is taken (columns past D are masked).
 //
-// Both issue blocks from the last q tile to the first, so the longest causal
+// All issue blocks from the last q tile to the first, so the longest causal
 // rows start first, and write each output once. Numerics: every sum is a
-// fixed chain (fixed mma and FMA order, the row max and row sum over four
-// lanes by a fixed shuffle pattern), no atomics, so two launches are bitwise
-// equal.
+// fixed chain (fixed mma and FMA order, the row max and row sum over a
+// row's lanes by a fixed shuffle pattern), no atomics, so two launches are
+// bitwise equal. The mma and regblock variants take each exponent of the
+// exact difference s - m wherever a key may be masked (regblock
+// everywhere), so a row with no visible key keeps p = 1.
 //
 // Plain C interface, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -623,6 +637,255 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int BH, int
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// regblock: float32 on the CUDA cores. A block owns BR (64 or 128) rows of
+// one bq tile; a thread owns 8 rows, 4 keys of each 32-key chunk's scores
+// and 2 columns of each 16-column strip of the output.
+
+constexpr int kRbKeys = 32;     // keys per staged chunk
+constexpr int kRbRows = 8;      // q rows a thread: 8 ty .. 8 ty + 7
+constexpr int kRbKeyLanes = 8;  // threads that share a row: keys tx + 8 j
+constexpr int kRbKeysPerThread = kRbKeys / kRbKeyLanes;
+
+// Stage `rows` rows of D floats at a row stride of D + 4 with cp.async.
+template <int D>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src, int rows, int tid,
+                                               int nthreads) {
+  constexpr int kPieces = D / 4;  // 16-byte pieces a row
+  for (int i = tid; i < rows * kPieces; i += nthreads) {
+    const int r = i / kPieces;
+    const int c = 4 * (i % kPieces);
+    cp_async_16(dst + r * (D + 4) + c, src + (long long)r * D + c, 16);
+  }
+}
+
+template <int D, int BR>
+__global__ void __launch_bounds__(BR, 2)
+attn_regblock_kernel(const float* __restrict__ q,  // [BH, S, D]
+                     const float* __restrict__ k,  // [BH, T, D]
+                     const float* __restrict__ v,  // [BH, T, D]
+                     float* __restrict__ o,        // [BH, S, D]
+                     int BH, int S, int Tk, int bq, int bkv, int causal, int window,
+                     float scale) {
+  // Row strides: D + 4 puts the eight rows a quarter-warp reads at one d on
+  // distinct banks (D is a multiple of 16), and so does BR + 4 for p^T.
+  constexpr int DS = D + 4;
+  constexpr int PS = BR + 4;
+  constexpr int NS = D / 16;  // 16-column strips of the output
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                    // [BR][DS]
+  float* s_k = s_q + BR * DS;           // [2][kRbKeys][DS]
+  float* s_v = s_k + 2 * kRbKeys * DS;  // [2][kRbKeys][DS]
+  float* s_p = s_v + 2 * kRbKeys * DS;  // [kRbKeys][PS]: p transposed
+
+  const int nsub = bq / BR;
+  const int nqt = S / bq;
+  const int per_tile = BH * nsub;
+  const int qt = nqt - 1 - blockIdx.x / per_tile;  // last q tiles first
+  const int bh = (blockIdx.x % per_tile) / nsub;
+  const int sub = blockIdx.x % nsub;
+  const int q_start = qt * bq;
+  const int r_base = q_start + sub * BR;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % kRbKeyLanes;
+  const int ty = tid / kRbKeyLanes;
+  const int row0 = kRbRows * ty;  // the thread's first row in the block
+
+  // The visited kv tiles of this bq tile: one contiguous range, walked by
+  // every row of the tile.
+  const int nkt = Tk / bkv;
+  int kt_lo = 0, kt_hi = nkt - 1;
+  if (causal) kt_hi = min(kt_hi, (q_start + bq - 1) / bkv);
+  if (window > 0 && q_start - window - bkv + 1 > 0)
+    kt_lo = (q_start - window - bkv + 1 + bkv - 1) / bkv;
+  const int key_lo = kt_lo * bkv;
+  const int key_hi = (kt_hi + 1) * bkv;
+  const int nchunks = key_hi > key_lo ? (key_hi - key_lo) / kRbKeys : 0;
+
+  const float* q_b = q + ((long long)bh * S + r_base) * D;
+  const float* k_b = k + (long long)bh * Tk * D;
+  const float* v_b = v + (long long)bh * Tk * D;
+
+  float acc[kRbRows][2 * NS];
+  float m[kRbRows], l[kRbRows];
+#pragma unroll
+  for (int i = 0; i < kRbRows; ++i) {
+    m[i] = kMaskValue;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 2 * NS; ++c) acc[i][c] = 0.0f;
+  }
+
+  if (nchunks > 0) {
+    stage_rows_f32<D>(s_q, q_b, BR, tid, BR);
+    stage_rows_f32<D>(s_k, k_b + (long long)key_lo * D, kRbKeys, tid, BR);
+    stage_rows_f32<D>(s_v, v_b + (long long)key_lo * D, kRbKeys, tid, BR);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ch has landed, and chunk ch - 1 and its p are consumed
+    if (ch + 1 < nchunks) {
+      const int kn0 = key_lo + (ch + 1) * kRbKeys;
+      const int buf = (ch + 1) & 1;
+      stage_rows_f32<D>(s_k + buf * kRbKeys * DS, k_b + (long long)kn0 * D, kRbKeys, tid, BR);
+      stage_rows_f32<D>(s_v + buf * kRbKeys * DS, v_b + (long long)kn0 * D, kRbKeys, tid, BR);
+      cp_async_commit();
+    }
+    const float* sk = s_k + (ch & 1) * kRbKeys * DS;
+    const float* sv = s_v + (ch & 1) * kRbKeys * DS;
+    const int kc0 = key_lo + ch * kRbKeys;
+
+    // Scores: sc[i][j] is row row0 + i, key kc0 + tx + 8 j, each a chain over d.
+    float sc[kRbRows][kRbKeysPerThread];
+#pragma unroll
+    for (int i = 0; i < kRbRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kRbKeysPerThread; ++j) sc[i][j] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 kb[kRbKeysPerThread];
+#pragma unroll
+      for (int j = 0; j < kRbKeysPerThread; ++j)
+        kb[j] = *reinterpret_cast<const float4*>(sk + (tx + kRbKeyLanes * j) * DS + d);
+#pragma unroll
+      for (int i = 0; i < kRbRows; ++i) {
+        const float4 qa = *reinterpret_cast<const float4*>(s_q + (row0 + i) * DS + d);
+#pragma unroll
+        for (int j = 0; j < kRbKeysPerThread; ++j) {
+          float t = sc[i][j];
+          t = fmaf(qa.x, kb[j].x, t);
+          t = fmaf(qa.y, kb[j].y, t);
+          t = fmaf(qa.z, kb[j].z, t);
+          t = fmaf(qa.w, kb[j].w, t);
+          sc[i][j] = t;
+        }
+      }
+    }
+
+    // Scale after the product, mask with the finite -1e30, then the online
+    // softmax; each exponent is of the exact difference s - m, so a row with
+    // no visible key yet has -1e30 - (-1e30) = 0 and p = 1. The row max and
+    // sum go over the row's eight lanes by a fixed xor pattern (every lane
+    // ends with the same value).
+#pragma unroll
+    for (int i = 0; i < kRbRows; ++i) {
+      const int row = r_base + row0 + i;
+      float mx = kMaskValue;
+#pragma unroll
+      for (int j = 0; j < kRbKeysPerThread; ++j) {
+        const int col = kc0 + tx + kRbKeyLanes * j;
+        const bool visible = (!causal || row >= col) && (window <= 0 || row - col <= window);
+        sc[i][j] = visible ? sc[i][j] * scale : kMaskValue;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kRbKeysPerThread; ++j) {
+        sc[i][j] = expf(sc[i][j] - m_new);
+        sum += sc[i][j];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      l[i] = alpha * l[i] + sum;
+#pragma unroll
+      for (int c = 0; c < 2 * NS; ++c) acc[i][c] *= alpha;
+    }
+
+    // p crosses shared memory once, transposed: s_p[key][row].
+#pragma unroll
+    for (int j = 0; j < kRbKeysPerThread; ++j) {
+      float* dst = s_p + (tx + kRbKeyLanes * j) * PS + row0;
+      *reinterpret_cast<float4*>(dst) = make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(sc[4][j], sc[5][j], sc[6][j], sc[7][j]);
+    }
+    __syncthreads();
+
+    // acc += p . v over the chunk's keys in order; columns 16 s + 2 tx, + 1.
+#pragma unroll 4
+    for (int key = 0; key < kRbKeys; ++key) {
+      const float4 p0 = *reinterpret_cast<const float4*>(s_p + key * PS + row0);
+      const float4 p1 = *reinterpret_cast<const float4*>(s_p + key * PS + row0 + 4);
+      const float p[kRbRows] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float2 vv = *reinterpret_cast<const float2*>(sv + key * DS + 16 * s + 2 * tx);
+#pragma unroll
+        for (int i = 0; i < kRbRows; ++i) {
+          acc[i][2 * s] = fmaf(p[i], vv.x, acc[i][2 * s]);
+          acc[i][2 * s + 1] = fmaf(p[i], vv.y, acc[i][2 * s + 1]);
+        }
+      }
+    }
+  }
+
+  float* o_b = o + ((long long)bh * S + r_base + row0) * D;
+#pragma unroll
+  for (int i = 0; i < kRbRows; ++i) {
+    const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      *reinterpret_cast<float2*>(o_b + (long long)i * D + 16 * s + 2 * tx) =
+          make_float2(acc[i][2 * s] / denom, acc[i][2 * s + 1] / denom);
+  }
+}
+
+template <int D, int BR>
+int launch_regblock_d(const void* q, const void* k, const void* v, void* o, int BH, int S,
+                      int Tk, int bq, int bkv, int causal, int window, float scale,
+                      void* stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)(BR + 4 * kRbKeys) * (D + 4) + (size_t)kRbKeys * (BR + 4));
+  if (smem > 48 * 1024) {  // above 48 KiB only by opting in
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_regblock_kernel<D, BR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long blocks = (long long)BH * (S / bq) * (bq / BR);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  attn_regblock_kernel<D, BR><<<(unsigned)blocks, BR, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), BH, S, Tk, bq, bkv, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_regblock(const void* q, const void* k, const void* v, void* o, int BH, int S,
+                    int Tk, int D, int bq, int bkv, int causal, int window, float scale,
+                    void* stream) {
+  if (BH == 0 || S == 0) return (int)cudaSuccess;
+  if (D <= 0 || D > kMaxHeadDim || D % 16 || bq <= 0 || bq % 64 || bkv <= 0 || bkv % 64 ||
+      S % bq || Tk % bkv)
+    return (int)cudaErrorInvalidValue;
+  // A block takes the whole bq tile where 128 rows divide it, else 64 rows.
+#define ATTN_RB_D(N)                                                                        \
+  case N:                                                                                   \
+    return bq % 128 == 0                                                                    \
+               ? launch_regblock_d<N, 128>(q, k, v, o, BH, S, Tk, bq, bkv, causal, window,  \
+                                           scale, stream)                                   \
+               : launch_regblock_d<N, 64>(q, k, v, o, BH, S, Tk, bq, bkv, causal, window,   \
+                                          scale, stream);
+  switch (D) {
+    ATTN_RB_D(16)
+    ATTN_RB_D(32)
+    ATTN_RB_D(48)
+    ATTN_RB_D(64)
+    ATTN_RB_D(80)
+    ATTN_RB_D(96)
+    ATTN_RB_D(112)
+    ATTN_RB_D(128)
+  }
+#undef ATTN_RB_D
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -644,6 +907,12 @@ int flash_attention_mma_bf16(const void* q, const void* k, const void* v, void* 
                              int BH, int S, int Tk, int D, int bq, int bkv,
                              int causal, int window, float scale, void* stream) {
   return launch_mma(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window, scale, stream);
+}
+
+int flash_attention_regblock_f32(const void* q, const void* k, const void* v, void* o,
+                                 int BH, int S, int Tk, int D, int bq, int bkv,
+                                 int causal, int window, float scale, void* stream) {
+  return launch_regblock(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window, scale, stream);
 }
 
 REPRO_ERROR_STRING(flash_attention)

@@ -8,9 +8,18 @@ in one launch,
     ``out[u, r] = Σ_{t: tile_row[u, t] = r} tiles[u, t] @ xsrc[u or 0, tile_src[u, t]]``
 
 the JAX package's ``repro/kernels/spmv/kernel.py::bell_spmm``, stacked
-over the unit axis. On a CUDA tensor it launches the hand-written
-kernel ``csrc/bell_spmm.cu`` (built at first use); on a CPU tensor it
-runs the plain version :func:`repro_torch.kernels.spmv.ref.bell_spmm_plain`.
+over the unit axis. On a CUDA tensor it launches one of the hand-written
+kernels of ``csrc/bell_spmm.cu`` (built at first use), the variant that
+:func:`spmm_variant` names from type and shape alone, before the launch:
+
+* ``stream`` — tiles up to 32 × 32, any B: a block per span of
+  block-rows (:func:`row_spans`), tiles streamed through a ``cp.async``
+  ring, a register patch of outputs a thread;
+* ``simt`` — larger tiles: a block per (unit, block-row, column chunk).
+
+Both keep one summation order, so column b of a result is bitwise the
+same whatever B and whichever variant ran. On a CPU tensor it runs the
+plain version :func:`repro_torch.kernels.spmv.ref.bell_spmm_plain`.
 There is no other path: a tensor elsewhere raises.
 """
 from __future__ import annotations
@@ -24,11 +33,56 @@ import torch
 from repro_torch.kernels.build import load
 from repro_torch.kernels.spmv.ref import bell_spmm_plain
 
-__all__ = ["BLOCK_SIZES", "BellTiles", "bell_tiles", "bell_spmm"]
+__all__ = ["BLOCK_SIZES", "VARIANTS", "BellTiles", "bell_tiles", "bell_spmm", "row_spans",
+           "spmm_variant"]
 
 # Tile heights and widths the kernel takes.
 BLOCK_SIZES = (8, 16, 32, 64, 128)
-_DTYPES = {torch.float32: "bell_spmm_f32", torch.float16: "bell_spmm_f16"}
+_TYPES = {torch.float32: "f32", torch.float16: "f16"}
+VARIANTS = ("stream", "simt")
+STREAM_MAX_BLOCK = 32  # the stream variant's largest bm and bn
+# A span holds at most this many output rows (64 // bm block-rows: a
+# block's threads, csrc/bell_spmm.cu kSpanOutRows) and, unless it is one
+# row, at most SPAN_TILES_PER_ROW tiles for each of them.
+SPAN_OUT_ROWS = 64
+SPAN_TILES_PER_ROW = 4
+
+
+def spmm_variant(dtype: torch.dtype, bm: int, bn: int, batch: int) -> str:
+    """The CUDA kernel that takes ``dtype`` tiles of ``bm × bn`` at batch
+    width ``batch``: ``stream`` when both sides are at most 32, at every
+    B ≥ 1; ``simt`` otherwise. Pure: type and shape alone decide."""
+    if dtype in _TYPES and bm <= STREAM_MAX_BLOCK and bn <= STREAM_MAX_BLOCK:
+        return "stream"
+    return "simt"
+
+
+def row_spans(row_ptr: np.ndarray, bm: int) -> np.ndarray:
+    """``[NS, 3]`` int32 rows ``(unit, r0, r1)``: every unit's block-rows
+    cut into spans of consecutive rows, each of which one block of the
+    ``stream`` kernel owns (its tiles are the contiguous run
+    ``row_ptr[u, r0] : row_ptr[u, r1]``). Every (unit, row) lies in
+    exactly one span, empty rows included, and a row is never split.
+
+    Greedy in row order: a span takes rows until it holds
+    ``SPAN_OUT_ROWS // bm`` of them, or until the next row would carry
+    its tiles past ``SPAN_TILES_PER_ROW`` per row of that limit — so
+    spans hold about the same number of tiles, and one longer row stands
+    alone."""
+    row_ptr = np.asarray(row_ptr, dtype=np.int64)
+    max_rows = max(1, SPAN_OUT_ROWS // bm)
+    max_tiles = SPAN_TILES_PER_ROW * max_rows
+    spans = []
+    for u, per_row in enumerate(np.diff(row_ptr, axis=1).tolist()):
+        r0, held = 0, 0
+        for r, c in enumerate(per_row):
+            if r > r0 and (r - r0 == max_rows or held + c > max_tiles):
+                spans.append((u, r0, r))
+                r0, held = r, 0
+            held += c
+        if per_row:
+            spans.append((u, r0, len(per_row)))
+    return np.asarray(spans, dtype=np.int32).reshape(-1, 3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,12 +91,15 @@ class BellTiles:
 
     Within each unit the ``counts[u]`` real tiles come first, in stable
     block-row order; ``row_ptr[u, r] : row_ptr[u, r + 1]`` is block-row
-    r's run. Padding tiles sit past ``counts[u]`` and are never read."""
+    r's run. Padding tiles sit past ``counts[u]`` and are never read.
+    ``spans`` is :func:`row_spans` of that row pointer, the ``stream``
+    kernel's grid, computed once here."""
 
     tiles: torch.Tensor  # [U, T, bm, bn] float32 or float16
     tile_row: torch.Tensor  # [U, T] int32 global block-row
     tile_src: torch.Tensor  # [U, T] int32 index into the unit's x source
     row_ptr: torch.Tensor  # [U, NRB + 1] int32
+    spans: torch.Tensor  # [NS, 3] int32 (unit, r0, r1)
     counts: np.ndarray  # [U] int64 real tiles per unit (host)
     nrb: int
     src_bound: int  # 1 + the largest tile_src of a real tile (0 if none)
@@ -80,7 +137,7 @@ def bell_tiles(
     bm, bn = int(tiles.shape[2]), int(tiles.shape[3])
     if bm not in BLOCK_SIZES or bn not in BLOCK_SIZES:
         raise ValueError(f"tile shape ({bm}, {bn}) not in {BLOCK_SIZES}")
-    if tiles.dtype not in _DTYPES:
+    if tiles.dtype not in _TYPES:
         raise TypeError(f"tiles must be float32 or float16, got {tiles.dtype}")
     if counts.shape != (u_n,) or (counts < 0).any() or (counts > t_n).any():
         raise ValueError(f"counts must be [U={u_n}] in [0, {t_n}], got {counts}")
@@ -116,6 +173,7 @@ def bell_tiles(
         tile_row=dev(tile_row),
         tile_src=dev(tile_src),
         row_ptr=dev(row_ptr),
+        spans=dev(row_spans(row_ptr, bm)),
         counts=counts,
         nrb=int(nrb),
         src_bound=src_bound,
@@ -124,13 +182,14 @@ def bell_tiles(
 
 def _library() -> ctypes.CDLL:
     lib = load("bell_spmm")
-    for name in _DTYPES.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_longlong,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+    for variant, pointers in (("simt", 5), ("stream", 6)):  # stream also takes the spans
+        for tname in _TYPES.values():
+            fn = getattr(lib, f"bell_spmm_{variant}_{tname}")
+            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [
+                ctypes.c_longlong,
+                ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
     lib.bell_spmm_error_string.argtypes = [ctypes.c_int]
     lib.bell_spmm_error_string.restype = ctypes.c_char_p
     return lib
@@ -141,8 +200,11 @@ def bell_spmm(bt: BellTiles, xsrc: torch.Tensor) -> torch.Tensor:
     set ``bt`` and the x source ``xsrc`` ``[U or 1, S, bn, B]`` (a leading
     1 means all units read the same source).
 
-    CUDA tensors launch the kernel on the current stream and add one to
-    ``bell_spmm.launches``; CPU tensors run the plain version."""
+    CUDA tensors launch the kernel that :func:`spmm_variant` names on the
+    current stream and add one to ``bell_spmm.launches`` and to that
+    variant's ``bell_spmm.variant_launches``; the ``stream`` kernel wants
+    ``tiles`` and ``xsrc`` 16-byte aligned and raises otherwise. CPU
+    tensors run the plain version."""
     tiles = bt.tiles
     u_n, t_n, bm, bn = tiles.shape
     if xsrc.device != tiles.device:
@@ -171,21 +233,31 @@ def bell_spmm(bt: BellTiles, xsrc: torch.Tensor) -> torch.Tensor:
     if not xsrc.is_contiguous():
         raise ValueError("xsrc must be contiguous")
     batch = int(xsrc.shape[3])
+    variant = spmm_variant(tiles.dtype, bm, bn, batch)
+    if variant == "stream" and (tiles.data_ptr() % 16 or xsrc.data_ptr() % 16):
+        raise ValueError("the stream kernel copies 16-byte pieces: tiles and xsrc must "
+                         "start on 16-byte boundaries")
     out = torch.empty((u_n, bt.nrb, bm, batch), dtype=torch.float32, device=tiles.device)
     ustride = 0 if xsrc.shape[0] == 1 else int(xsrc.shape[1]) * bn * batch
     lib = _library()
+    fn = getattr(lib, f"bell_spmm_{variant}_{_TYPES[tiles.dtype]}")
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream(tiles.device).cuda_stream
-        rc = getattr(lib, _DTYPES[tiles.dtype])(
-            tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(),
-            xsrc.data_ptr(), out.data_ptr(),
-            u_n, t_n, bt.nrb, bm, bn, batch, ustride, stream,
-        )
+        if variant == "stream":
+            rc = fn(tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(),
+                    xsrc.data_ptr(), bt.spans.data_ptr(), out.data_ptr(),
+                    int(bt.spans.shape[0]), t_n, bt.nrb, bm, bn, batch, ustride, stream)
+        else:
+            rc = fn(tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(),
+                    xsrc.data_ptr(), out.data_ptr(),
+                    u_n, t_n, bt.nrb, bm, bn, batch, ustride, stream)
     if rc != 0:
         msg = lib.bell_spmm_error_string(rc).decode()
-        raise RuntimeError(f"bell_spmm launch failed: {msg} (cudaError {rc})")
+        raise RuntimeError(f"bell_spmm launch failed ({variant}): {msg} (cudaError {rc})")
     bell_spmm.launches += 1
+    bell_spmm.variant_launches[variant] += 1
     return out
 
 
 bell_spmm.launches = 0
+bell_spmm.variant_launches = dict.fromkeys(VARIANTS, 0)

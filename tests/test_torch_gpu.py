@@ -16,7 +16,7 @@ import torch
 from repro_torch.api import Topology, distribute
 from repro_torch.kernels.attn import attention_plain, attention_variant, flash_attention, mha
 from repro_torch.kernels.gmm import gmm_plain, gmm_variant, grouped_matmul, plan_groups
-from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles
+from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles, spmm_variant
 from repro_torch.sparse.generate import banded_coo
 
 pytestmark = pytest.mark.gpu
@@ -42,23 +42,57 @@ def _tile_set(rng, bm, bn, u_n=3, nrb=20, nsrc=25, t_max=30):
     return tiles, rows, src, counts, nrb, nsrc
 
 
-@pytest.mark.parametrize("bm,bn", [(8, 8), (8, 16), (16, 16), (8, 128), (128, 128)])
+def _simt(bt, x):
+    """The simt kernel by its C entry point, on the same inputs."""
+    from repro_torch.kernels.spmv.ops import _library
+
+    u_n, t_n, bm, bn = bt.tiles.shape
+    b = x.shape[3]
+    out = torch.empty((u_n, bt.nrb, bm, b), dtype=torch.float32, device=x.device)
+    name = "f16" if bt.tiles.dtype == torch.float16 else "f32"
+    ustride = 0 if x.shape[0] == 1 else x.shape[1] * bn * b
+    rc = getattr(_library(), f"bell_spmm_simt_{name}")(
+        bt.tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(), x.data_ptr(),
+        out.data_ptr(), u_n, t_n, bt.nrb, bm, bn, b, ustride,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("bm,bn", [(8, 8), (8, 16), (16, 16), (32, 32), (8, 128), (128, 128)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float16, 2e-2)])
-def test_kernel_matches_plain_and_is_column_stable(cuda, bm, bn, dtype, tol):
+@pytest.mark.parametrize("b", [1, 3, 8, 64])
+def test_kernel_matches_plain_and_is_column_stable(cuda, bm, bn, dtype, tol, b):
     rng = np.random.default_rng(bm * 1000 + bn)
     tiles, rows, src, counts, nrb, nsrc = _tile_set(rng, bm, bn)
     bt = bell_tiles(torch.as_tensor(tiles, device=cuda).to(dtype), rows, src, counts, nrb)
-    x = torch.as_tensor(rng.standard_normal((3, nsrc, bn, 8)).astype(np.float32),
+    x = torch.as_tensor(rng.standard_normal((3, nsrc, bn, b)).astype(np.float32),
                         device=cuda).to(dtype)
+    variant = spmm_variant(dtype, bm, bn, b)
     before = bell_spmm.launches
+    before_variant = bell_spmm.variant_launches[variant]
     y = bell_spmm(bt, x)
     assert bell_spmm.launches == before + 1
+    assert bell_spmm.variant_launches[variant] == before_variant + 1
     y_plain = bell_spmm_plain(bt.tiles, bt.tile_row, bt.tile_src, bt.counts, x, nrb)
     # Relative to the result's scale: FMA and separate multiply-add round apart.
     assert float((y - y_plain).abs().max() / y_plain.abs().max()) <= tol
     assert torch.equal(y, bell_spmm(bt, x))
-    for j in range(8):
+    # One FMA chain in every variant and patch: column j is the B = 1
+    # launch, and the stream kernel's result is the simt kernel's.
+    for j in range(b):
         assert torch.equal(y[..., j:j + 1], bell_spmm(bt, x[..., j:j + 1].contiguous()))
+    assert torch.equal(y, _simt(bt, x))
+
+
+def test_kernel_refuses_misaligned_sources(cuda):
+    rng = np.random.default_rng(4)
+    tiles, rows, src, counts, nrb, nsrc = _tile_set(rng, 16, 16)
+    bt = bell_tiles(torch.as_tensor(tiles, device=cuda), rows, src, counts, nrb)
+    flat = torch.zeros(3 * nsrc * 16 * 8 + 1, device=cuda)
+    x = flat[1:].view(3, nsrc, 16, 8)  # 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        bell_spmm(bt, x)
 
 
 def test_session_on_the_card_matches_the_oracle(cuda):
@@ -130,12 +164,14 @@ def test_gmm_dispatch_on_the_card(cuda):
 
 # T < S with a window leaves rows that see no key: (128, 32, 32, 16) with
 # (True, 8), (64, 32, 16, 16) with (False, 8), (128, 32, 16, 16) with
-# (True, 4). D 24 runs bf16 on the simt variant.
+# (True, 4), (256, 64, 64, 64) with (True, 8). D 24 runs both types on the
+# simt variant; float32 takes regblock at 64-multiple tiles.
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 8), (True, 32),
                                            (False, 16), (False, 8), (True, 4)])
 @pytest.mark.parametrize("s,t,bq,bkv", [(64, 64, 16, 16), (128, 128, 32, 16),
                                         (256, 256, 128, 128), (128, 256, 64, 32),
-                                        (128, 32, 32, 16), (64, 32, 16, 16), (128, 32, 16, 16)])
+                                        (128, 32, 32, 16), (64, 32, 16, 16), (128, 32, 16, 16),
+                                        (256, 64, 64, 64), (128, 128, 64, 64)])
 @pytest.mark.parametrize("d", [16, 24, 64, 80, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain(cuda, causal, window, s, t, bq, bkv, d, dtype):

@@ -118,11 +118,19 @@ def test_plain_wants_both_tiles_or_neither():
 # tests/test_torch_gpu.py), with the variant it must take:
 # (dtype, D, bq, bkv, variant).
 VARIANT_CASES = [
-    *[(dt, d, bq, bkv, "mma" if dt == "bfloat16" else "simt")
+    *[(dt, d, bq, bkv, "mma" if dt == "bfloat16" else
+       "regblock" if bq % 64 == 0 and bkv % 64 == 0 else "simt")
       for dt in ("float32", "bfloat16") for d in (16, 64, 80, 128)
       for bq, bkv in ((16, 16), (32, 16), (64, 64), (128, 128), (32, 64), (64, 32))],
     ("bfloat16", 64, 128, 128, "mma"),  # granite-moe-1b-a400m causal prefill
     ("bfloat16", 80, 128, 128, "mma"),  # h2o-danube-1.8b window prefill
+    ("float32", 64, 128, 128, "regblock"),  # granite, float32
+    ("float32", 80, 128, 128, "regblock"),  # h2o, float32
+    ("float32", 80, 128, 64, "regblock"),  # 64-multiple tiles
+    ("float32", 64, 16, 16, "simt"),  # bq not a multiple of 64
+    ("float32", 64, 128, 32, "simt"),  # bkv not a multiple of 64
+    ("float32", 24, 64, 64, "simt"),  # the sweep's D = 24, not a multiple of 16
+    ("float32", 144, 128, 128, "simt"),  # D past 128
     ("bfloat16", 24, 16, 16, "simt"),  # D not a multiple of 16
     ("bfloat16", 64, 8, 16, "simt"),  # bq not a multiple of 16
     ("bfloat16", 64, 16, 8, "simt"),  # bkv not a multiple of 16

@@ -16,7 +16,14 @@ import torch
 from repro.kernels.spmv import bell_spmm_ref as jx_bell_spmm_ref
 from repro.pmvc.plan_device import pack_units as jx_pack_units
 from repro.sparse.generate import banded_coo, grid5_coo, random_coo
-from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles
+from repro_torch.kernels.spmv import (
+    bell_spmm,
+    bell_spmm_plain,
+    bell_tiles,
+    row_spans,
+    spmm_variant,
+)
+from repro_torch.kernels.spmv.ops import SPAN_OUT_ROWS, SPAN_TILES_PER_ROW
 from repro_torch.pmvc.plan_device import pack_units
 from repro_torch.sparse.bell import pad_x_blocks
 from repro_torch.sparse.formats import COO
@@ -155,3 +162,69 @@ def test_wrapper_checks_its_inputs():
         bell_spmm(bt, xb[None, :1])
     with pytest.raises(ValueError, match="1 or U"):
         bell_spmm(bt, xb[None].expand(2, -1, -1, -1))
+
+
+def _row_ptr(per_row):
+    per_row = np.asarray(per_row, dtype=np.int64)
+    ptr = np.zeros((per_row.shape[0], per_row.shape[1] + 1), np.int64)
+    np.cumsum(per_row, axis=1, out=ptr[:, 1:])
+    return ptr
+
+
+# Tiles per (unit, block-row): ragged, with empty rows and whole empty
+# units, one long row among short ones, and a single row.
+_rng = np.random.default_rng(11)
+SPAN_PLANS = {
+    "ragged": _rng.integers(0, 7, size=(3, 50)),
+    "empty": np.zeros((2, 9), np.int64),
+    "empty_unit": np.vstack([np.zeros(20, np.int64), _rng.integers(0, 3, size=20)]),
+    "long_row": np.array([[1, 2, 1, 90, 1, 0, 2, 3, 1, 1]]),
+    "one_row": np.array([[5], [0]]),
+    "banded": np.full((4, 37), 3),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(SPAN_PLANS))
+@pytest.mark.parametrize("bm", [8, 16, 32])
+def test_row_spans_cover_every_row_once_and_balance_tiles(plan, bm):
+    per_row = SPAN_PLANS[plan]
+    ptr = _row_ptr(per_row)
+    spans = row_spans(ptr, bm)
+    assert spans.dtype == np.int32 and spans.shape[1] == 3
+    max_rows = SPAN_OUT_ROWS // bm
+    max_tiles = SPAN_TILES_PER_ROW * max_rows
+    covered = np.zeros(per_row.shape, np.int64)
+    for u, r0, r1 in spans:
+        assert 0 <= r0 < r1 <= per_row.shape[1]
+        covered[u, r0:r1] += 1
+        assert r1 - r0 <= max_rows  # the block's threads hold the span's outputs
+        held = ptr[u, r1] - ptr[u, r0]  # one contiguous run of tiles
+        assert held == per_row[u, r0:r1].sum()
+        if r1 - r0 > 1:
+            assert held <= max_tiles  # balanced: only a lone row may exceed the budget
+        # Maximal: the span stopped at the unit's end, at the row limit, or
+        # because the next row would carry it past the budget.
+        if r1 < per_row.shape[1] and r1 - r0 < max_rows:
+            assert held + per_row[u, r1] > max_tiles
+    np.testing.assert_array_equal(covered, 1)  # every (unit, row) exactly once
+    # Spans of a unit are in row order, and units in order.
+    keys = spans[:, 0].astype(np.int64) * (per_row.shape[1] + 1) + spans[:, 1]
+    assert (np.diff(keys) > 0).all()
+
+
+def test_tile_set_carries_its_spans():
+    dp = _plan(banded_coo, 4, 16, 16)
+    bt = bell_tiles(torch.as_tensor(dp.tiles), dp.tile_row, dp.tile_col, dp.real_tiles,
+                    dp.num_row_blocks)
+    assert bt.spans.dtype == torch.int32
+    np.testing.assert_array_equal(bt.spans.numpy(), row_spans(bt.row_ptr.numpy(), 16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("bm,bn,b,variant", [
+    (16, 16, 1, "stream"), (16, 16, 8, "stream"), (16, 16, 64, "stream"),  # the main path
+    (8, 8, 3, "stream"), (32, 32, 17, "stream"), (8, 32, 64, "stream"),
+    (8, 128, 8, "simt"), (64, 16, 8, "simt"), (128, 128, 1, "simt"), (128, 128, 64, "simt"),
+])
+def test_spmm_variant(dtype, bm, bn, b, variant):
+    assert spmm_variant(dtype, bm, bn, b) == variant
