@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases, each of which stops the run with a non-zero exit when it fails:
 
@@ -13,7 +13,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 3. **kernel** — every kernel against its plain PyTorch version on the
    card over a sweep of shapes and types, two launches bitwise equal:
    ``bell_spmm`` over tile shapes (up to 32 × 32 on its ``stream``
-   variant, larger on ``simt``) and batch widths (column j of every B
+   variant, larger on ``simt``, and shapes off that grid — 24 × 16 on
+   ``stream``, 16 × 24 and 12 × 12 on ``simt``) and batch widths (each
+   launch on the variant ``spmm_variant`` names, column j of every B
    bitwise the B = 1 launch on column j, and a ``stream`` result bitwise
    the ``simt`` kernel's on the same inputs), ``gmm`` over the
    reference tests' shapes and shapes that reach its ``wgmma`` and
@@ -29,7 +31,22 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    selective and ``overlap:2`` exchanges, held against the float64 CSR
    ``reference`` executor; each kernel's launch counter, set to 0 just
    before a path runs, must have risen on it, on ``stream`` alone;
-5. **lm kernels** — the other two kernels on their own entry points at
+5. **serve** — the serving path on the main path's sessions (nothing
+   re-planned), for each exchange: one ``SparseServeEngine``
+   (``batch_slots`` 8, 20 iterations, ``A`` as ``a`` and the SPD matrix
+   as ``spd``) serves 64 requests from 4 tenants, made from ``--seed``
+   (pagerank with sparse seeds and spmv on ``a``, jacobi and cg on
+   ``spd``), ticked until drained; every result must be bitwise its
+   direct batched-of-1 solve on the same session, the B = 8 spmv's
+   columns bitwise the B = 1 spmv, one request per solver within 1e-4 of
+   the float64 CSR oracle's direct solve, every ``bell_spmm`` launch
+   ``stream``, and the same requests through a ``ServeDriver`` thread
+   bitwise the same; it prints the tick wall time and its split between
+   the spmv calls and the steppers' host arithmetic, one lane step's
+   time by solver, the device time (CUDA events around each lane step's
+   spmv), the device's idle share, requests per second against the 64
+   direct solves in sequence, latency, and peak device memory;
+6. **lm kernels** — the other two kernels on their own entry points at
    the full width of the repo's language-model configs: the MoE expert
    FFN of granite-moe-1b-a400m (``plan_groups`` → gather → three
    ``grouped_matmul`` calls, bf16 and f32), its causal prefill
@@ -39,7 +56,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    counter, set to 0 just before its path, must have risen on it, and
    so must the per-variant counts of the tensor-core variants (bf16) and
    of the register-blocked ones (f32), never those of ``simt``;
-6. **times** — each kernel's time per launch at its path's shapes
+7. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, the ``simt`` variant's time
    at the same shapes (the kernels of the previous slices, compared within
@@ -54,6 +71,7 @@ script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -82,9 +100,13 @@ TOL_F16 = 2e-2  # float16 tiles and x, float32 accumulation
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
-# Tile shapes of the stream variant (bm, bn <= 32), then of simt.
+# Tile shapes of the stream variant (bm, bn <= 32), then of simt, from
+# kernels/spmv/ops.py's BLOCK_SIZES; then shapes off that grid, at fewer
+# batch widths: (24, 16) on stream, the others on simt.
 KERNEL_SWEEP = ((8, 8), (8, 16), (16, 16), (32, 32), (8, 128), (128, 128))
 SWEEP_BATCHES = (1, 3, 8, 64)
+OFF_GRID_SWEEP = ((24, 16), (16, 24), (12, 12))
+OFF_GRID_BATCHES = (1, 8)
 # The reference tests' tolerances, as rtol and atol: tests/test_kernels_gmm.py
 # and tests/test_kernels_attn.py.
 GMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 8e-2}
@@ -108,6 +130,12 @@ ATTN_EXTRA = ((True, 0, 256, 256, 128, 128, 64), (True, 32, 256, 256, 128, 128, 
               (False, 0, 256, 256, 128, 128, 128), (True, 16, 64, 192, 32, 64, 80),
               (True, 8, 128, 32, 32, 16, 80), (True, 8, 64, 64, 16, 16, 24),
               (True, 8, 256, 64, 64, 64, 80), (True, 4, 256, 64, 128, 64, 64))
+# The [serve] phase: BENCH_serve.json's batch_slots and iters, 64 requests
+# from 4 tenants.
+SERVE_SLOTS = 8
+SERVE_ITERS = 20
+SERVE_REQUESTS = 64
+SERVE_TENANTS = 4
 # bf16 attention on the [lm attn] path: two bf16 ulps of the result plus a
 # floor, elementwise, against the plain version with the kernel's tiles.
 ATTN_BF16_REL, ATTN_BF16_ABS = 2.0**-6, 2e-3
@@ -252,16 +280,22 @@ def phase_kernel(device) -> None:
     rng = np.random.default_rng(0)
     worst = 0.0
     before = dict(bell_spmm.variant_launches)
-    for bm, bn in KERNEL_SWEEP:
+    sweep = [(bm, bn, SWEEP_BATCHES) for bm, bn in KERNEL_SWEEP]
+    sweep += [(bm, bn, OFF_GRID_BATCHES) for bm, bn in OFF_GRID_SWEEP]
+    for bm, bn, batches in sweep:
         tiles, rows, src, counts = random_tile_set(rng, 4, 24, bm, bn, 30, 40)
         for dtype, tol in ((torch.float32, TOL_F32), (torch.float16, TOL_F16)):
             bt = bell_tiles(torch.as_tensor(tiles, device=device).to(dtype),
                             rows, src, counts, 24)
             for ux in (4, 1):  # per-unit sources, and one shared source
                 xs = {b: torch.as_tensor(rng.standard_normal((ux, 30, bn, b)).astype(
-                    np.float32), device=device).to(dtype) for b in SWEEP_BATCHES}
+                    np.float32), device=device).to(dtype) for b in batches}
                 for b, x in xs.items():
+                    variant = spmm_variant(dtype, bm, bn, b)
+                    ran = bell_spmm.variant_launches[variant]
                     y = bell_spmm(bt, x)
+                    check(bell_spmm.variant_launches[variant] == ran + 1,
+                          f"bell_spmm ({bm},{bn}) B={b} {dtype} did not run on {variant}")
                     y_plain = bell_spmm_plain(bt.tiles, bt.tile_row, bt.tile_src,
                                               bt.counts, x, bt.nrb)
                     torch.cuda.synchronize()
@@ -278,10 +312,10 @@ def phase_kernel(device) -> None:
                         y1 = bell_spmm(bt, x[..., j:j + 1].contiguous())
                         check(torch.equal(y[..., j:j + 1], y1),
                               f"column {j} of B={b} is not the B=1 result ({bm},{bn}) {dtype}")
-                    if spmm_variant(dtype, bm, bn, b) == "stream":
+                    if variant == "stream":
                         check(torch.equal(y, spmm_simt(bt, x)),
                               f"stream and simt differ ({bm},{bn}) B={b} {dtype}")
-        log(f"[kernel] bell_spmm ({bm},{bn}) B in {SWEEP_BATCHES}, f32 + f16, "
+        log(f"[kernel] bell_spmm ({bm},{bn}) B in {batches}, f32 + f16, "
             f"{spmm_variant(torch.float32, bm, bn, 1)}: ok")
     ran = {v: bell_spmm.variant_launches[v] - before[v] for v in VARIANTS}
     check(all(ran.values()), f"bell_spmm sweep left a variant unlaunched: {ran}")
@@ -441,7 +475,7 @@ def phase_main_path(device) -> dict:
         f"{dp.tiles.nbytes / 1e6:.1f} MB payload")
 
     out = {"launches": 0, "variant_launches": dict.fromkeys(bell_spmm.variant_launches, 0),
-           "sessions": {}}
+           "sessions": {}, "spd_sessions": {}, "ref": ref_sess, "spd_ref": spd_ref}
     for ex in EXCHANGES:
         bell_spmm.launches = 0
         bell_spmm.variant_launches = dict.fromkeys(bell_spmm.variant_launches, 0)
@@ -476,10 +510,259 @@ def phase_main_path(device) -> dict:
         for v, c in by_variant.items():
             out["variant_launches"][v] += c
         out["sessions"][ex] = sess
+        out["spd_sessions"][ex] = spd_sess
     return out
 
 
-# -- phase 5: lm kernels -----------------------------------------------------
+# -- phase 5: serve ----------------------------------------------------------
+
+
+class DeviceClock:
+    """Clocks on each spmv of the ``timed`` executor while ``on``: CUDA
+    events around its device work (x on the card to y on the card, the
+    span PERF.md §5 calls an spmv's device time, here with whatever gaps
+    the host leaves between its launches), and the host clock around the
+    whole call, copies in and out included."""
+
+    def __init__(self):
+        self.pairs = []
+        self.wall_s = 0.0
+        self.on = False
+
+    def executor(self, session):
+        """The ``simulate`` executor's spmv (the same closure, the same
+        row-major copy out) with the clocks around it."""
+        mv = session.device_spmm()
+
+        def spmv(x):
+            t0 = time.perf_counter()
+            xt = torch.as_tensor(np.asarray(x, np.float32), device=session.device)
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = mv(xt).contiguous()
+            stop.record()
+            out = y.cpu().numpy()
+            if self.on:
+                self.pairs.append((start, stop))
+                self.wall_s += time.perf_counter() - t0
+            return out
+
+        return spmv
+
+    def take(self) -> tuple:
+        """(device ms, spmv wall ms) since the last take."""
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.pairs)
+        wall_ms = self.wall_s * 1e3
+        self.pairs, self.wall_s = [], 0.0
+        return ms, wall_ms
+
+
+def serve_requests(rng, n: int) -> list:
+    """SERVE_REQUESTS requests from SERVE_TENANTS tenants, a quarter each of
+    pagerank with sparse seeds and spmv on ``a``, and jacobi and cg with
+    random right-hand sides on ``spd``: (graph, solver, payload, tenant)."""
+    kinds = (("a", "pagerank"), ("a", "spmv"), ("spd", "jacobi"), ("spd", "cg"))
+    out = []
+    for i in range(SERVE_REQUESTS):
+        graph, solver = kinds[i % len(kinds)]
+        if solver == "pagerank":
+            seeds = (rng.random(n) < 1e-3).astype(np.float32)
+            seeds[rng.integers(n)] = 1.0  # mass everywhere
+            payload = {"seeds": seeds}
+        elif solver == "spmv":
+            payload = {"x": rng.standard_normal(n).astype(np.float32)}
+        else:
+            payload = {"b": rng.standard_normal(n).astype(np.float32)}
+        out.append((graph, solver, payload, f"t{i % SERVE_TENANTS}"))
+    return out
+
+
+def direct_solve(sess, solver, payload):
+    """The engine's parity reference: the direct batched-of-1 solve
+    (tests/test_serve_sparse.py::_direct), x only."""
+    if solver == "spmv":
+        return sess.spmv(payload["x"][None])[0]
+    kw = {k: v[None] for k, v in payload.items()}
+    return sess.solve(solver, iters=SERVE_ITERS, **kw).x[0]
+
+
+def lane_step_ms(graphs: dict, requests: list, clock: DeviceClock, reps: int = 5) -> dict:
+    """Per solver, the host wall time of one step of a full stepper
+    (SERVE_SLOTS slots, the requests' first payloads) and of its spmv call,
+    in ms, the mean of ``reps`` steps after one untimed step."""
+    out = {}
+    for solver in ("pagerank", "spmv", "jacobi", "cg"):
+        mine = [(g, p) for g, name, p, _ in requests if name == solver][:SERVE_SLOTS]
+        stepper = graphs[mine[0][0]].batch_stepper(solver, SERVE_SLOTS)
+        for slot, (_, payload) in enumerate(mine):
+            stepper.load(slot, **payload)
+        active = np.ones(SERVE_SLOTS, dtype=bool)
+        stepper.step(active)
+        clock.take()
+        clock.on = True
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            stepper.step(active)
+        wall = (time.perf_counter() - t0) / reps * 1e3
+        clock.on = False
+        out[solver] = (wall, clock.take()[1] / reps)
+    return out
+
+
+def phase_serve(main: dict, card: dict, seed: int) -> dict:
+    from repro_torch.api import register_executor
+    from repro_torch.kernels.spmv import bell_spmm
+    from repro_torch.serve import ServeDriver, SparseServeEngine, Status
+
+    clock = DeviceClock()
+    register_executor("timed", clock.executor)
+    where = card["smi"]
+    n = main["ref"].matrix.shape[0]
+    requests = serve_requests(np.random.default_rng(seed), n)
+    # The float64 CSR oracle's direct solve, one request per solver.
+    t0 = time.perf_counter()
+    oracle = {}
+    for i, (graph, solver, payload, _) in enumerate(requests):
+        if solver not in {r[1] for r in oracle.values()}:
+            ref = main["ref"] if graph == "a" else main["spd_ref"]
+            oracle[i] = (direct_solve(ref, solver, payload), solver)
+    log(f"[serve] oracle solves for {sorted(r[1] for r in oracle.values())}: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    out = {"launches": 0, "variant_launches": dict.fromkeys(bell_spmm.variant_launches, 0)}
+    for ex in EXCHANGES:
+        graphs = {"a": main["sessions"][ex].with_executor("timed"),
+                  "spd": main["spd_sessions"][ex].with_executor("timed")}
+        # pagerank's |A| link session hoists its tiles at its first spmv,
+        # once per session: here, not inside the first timed tick.
+        graphs["a"].solve("pagerank", iters=1)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+
+        def engine():
+            eng = SparseServeEngine(batch_slots=SERVE_SLOTS, default_iters=SERVE_ITERS,
+                                    max_queue=SERVE_REQUESTS)
+            for name, sess in graphs.items():
+                eng.register_graph(name, sess)
+            return eng
+
+        def counted(what: str, run):
+            """Run ``run`` with the launch counters set to 0 just before and
+            read just after; every launch must be stream."""
+            bell_spmm.launches = 0
+            bell_spmm.variant_launches = dict.fromkeys(bell_spmm.variant_launches, 0)
+            got = run()
+            torch.cuda.synchronize()
+            by_variant = dict(bell_spmm.variant_launches)
+            check(bell_spmm.launches > 0 and by_variant["stream"] == bell_spmm.launches,
+                  f"{ex}: {what} did not run on stream alone: {by_variant}")
+            return got, by_variant
+
+        # The engine, ticked here: wall time per tick, device time per lane step.
+        def serve():
+            eng = engine()
+            clock.take()
+            clock.on = True
+            t0 = time.perf_counter()
+            tickets = [eng.submit(g, solver, payload=p, tenant=t)
+                       for g, solver, p, t in requests]
+            ticks = []
+            while eng.pending():
+                check(len(ticks) < 10_000, f"{ex}: the engine did not drain")
+                t1 = time.perf_counter()
+                eng.step()
+                ticks.append(time.perf_counter() - t1)
+            wall = time.perf_counter() - t0
+            clock.on = False
+            return eng, tickets, ticks, wall, *clock.take()
+
+        (eng, tickets, ticks, wall, device_ms, spmv_ms), by_variant = counted("the engine",
+                                                                             serve)
+        check(all(t.status is Status.DONE for t in tickets),
+              f"{ex}: not every request reached DONE: "
+              f"{sorted({t.status.value for t in tickets})}")
+        snap = eng.metrics.snapshot()
+
+        # Bitwise: every served result is its direct batched-of-1 solve, and
+        # the spmv's columns at B = SERVE_SLOTS are the B = 1 spmv's.
+        def compare():
+            t0 = time.perf_counter()
+            direct = [direct_solve(graphs[g], solver, p) for g, solver, p, _ in requests]
+            seq_wall = time.perf_counter() - t0
+            for t, x, (_, solver, _, _) in zip(tickets, direct, requests, strict=True):
+                check(np.isfinite(t.result.x).all() and t.result.x.shape == (n,),
+                      f"{ex}: ticket {t.tid} ({solver}) non-finite or misshapen")
+                check(np.array_equal(t.result.x, x),
+                      f"{ex}: ticket {t.tid} ({solver}) is not bitwise its direct solve")
+            xs = np.random.default_rng(seed + 1).standard_normal((SERVE_SLOTS, n)).astype(
+                np.float32)
+            y = graphs["a"].spmv(xs)
+            for j in range(SERVE_SLOTS):
+                check(np.array_equal(y[j], graphs["a"].spmv(xs[j:j + 1])[0]),
+                      f"{ex}: column {j} of the B={SERVE_SLOTS} spmv is not the B=1 spmv")
+            return seq_wall
+
+        seq_wall, _ = counted("the direct solves", compare)
+        worst = 0.0
+        for i, (x_ref, solver) in oracle.items():
+            err = rel_err(tickets[i].result.x, x_ref)
+            check(err < 1e-4, f"{ex}: served {solver} off the float64 oracle by {err:.2e}")
+            worst = max(worst, err)
+
+        # The same requests through a driver thread: the same results, bitwise.
+        def drive():
+            eng2 = engine()
+            with ServeDriver(eng2):
+                again = [eng2.submit(g, solver, payload=p, tenant=t)
+                         for g, solver, p, t in requests]
+                for t in again:
+                    check(t.wait(600.0), f"{ex}: the driver never finished ticket {t.tid}")
+            return again
+
+        again, drv_variants = counted("the driver", drive)
+        for first, second in zip(tickets, again, strict=True):
+            check(second.status is Status.DONE and np.array_equal(first.result.x, second.result.x),
+                  f"{ex}: ticket {second.tid} through the driver differs from the engine's")
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        launches, drv_launches = sum(by_variant.values()), sum(drv_variants.values())
+        by_solver, _ = counted("the lane-step timing",
+                               lambda: lane_step_ms(graphs, requests, clock))
+
+        tick_ms = np.asarray(ticks) * 1e3
+        idle = 1.0 - device_ms / (wall * 1e3)
+        rps, seq_rps = SERVE_REQUESTS / wall, SERVE_REQUESTS / seq_wall
+        log(f"[serve] {ex}: {SERVE_REQUESTS} requests, {len(ticks)} ticks, "
+            f"{snap['lane_steps']} lane steps (B={SERVE_SLOTS}), occupancy {snap['occupancy']}; "
+            f"bell_spmm launches {launches} {by_variant}, driver run {drv_launches}; "
+            f"every result bitwise its direct solve, the B={SERVE_SLOTS} spmv's columns "
+            f"bitwise the B=1 spmv, the driver's results bitwise the engine's; worst served "
+            f"vs float64 oracle {worst:.3e}")
+        steps = snap["lane_steps"]
+        log(f"[serve] {ex}: tick wall mean {tick_ms.mean():.3f} ms (p50 "
+            f"{np.percentile(tick_ms, 50):.3f}, p99 {np.percentile(tick_ms, 99):.3f}, total "
+            f"{wall * 1e3:.1f} ms); of the total, the spmv calls {spmv_ms:.1f} ms "
+            f"({spmv_ms / steps:.4f} ms a lane step, copies in and out included) and the "
+            f"steppers' host arithmetic with the scheduler {tick_ms.sum() - spmv_ms:.1f} ms "
+            f"({(tick_ms.sum() - spmv_ms) / steps:.4f} ms a lane step); device {device_ms:.1f} "
+            f"ms ({device_ms / steps:.4f} ms a lane step); device idle share {idle:.1%} "
+            f"[{where}]")
+        log(f"[serve] {ex}: one full lane step (B={SERVE_SLOTS}) by solver, wall ms (of it the "
+            f"spmv call): " + ", ".join(f"{k} {w:.3f} ({m:.3f})" for k, (w, m) in by_solver.items())
+            + f" [{where}]")
+        log(f"[serve] {ex}: engine {rps:.1f} requests/s against {seq_rps:.1f} requests/s "
+            f"for the {SERVE_REQUESTS} direct solves in sequence ({rps / seq_rps:.2f}x); "
+            f"latency p50 {snap['total_p50_s'] * 1e3:.1f} ms, p99 "
+            f"{snap['total_p99_s'] * 1e3:.1f} ms; peak device memory {peak:.0f} MiB "
+            f"({resident:.0f} MiB resident before the phase) [{where}]")
+        out["launches"] += launches + drv_launches
+        for v in by_variant:
+            out["variant_launches"][v] += by_variant[v] + drv_variants[v]
+    return out
+
+
+# -- phase 6: lm kernels -----------------------------------------------------
 
 
 def moe_routing(rng, tokens: int, experts: int, top_k: int):
@@ -672,7 +955,7 @@ def phase_lm_attention(device) -> dict:
             "runs": runs}
 
 
-# -- phase 6: times ----------------------------------------------------------
+# -- phase 7: times ----------------------------------------------------------
 
 
 def bsr_library_ms(bt, xb, reps):
@@ -975,6 +1258,10 @@ def phase_times_attn(attn: dict, card: dict) -> list:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the [serve] phase's requests (default 0)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present; this script runs on the card",
               file=sys.stderr)
@@ -987,6 +1274,7 @@ def main() -> int:
     phase_kernel_gmm(device)
     phase_kernel_attn(device)
     main_path = phase_main_path(device)
+    serve = phase_serve(main_path, card, args.seed)
     moe = phase_lm_moe(device)
     attn = phase_lm_attention(device)
     rows = phase_times(main_path, card, device)
@@ -1002,9 +1290,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bell_spmm.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:74",
-        "launches": main_path["launches"],
+        "launches": main_path["launches"] + serve["launches"],
         "variant": head["variant"],
-        "variant_launches": main_path["variant_launches"],
+        "variant_launches": {v: c + serve["variant_launches"][v]
+                             for v, c in main_path["variant_launches"].items()},
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

@@ -3,7 +3,8 @@
 The same pipeline as the JAX package — two-level partitioning,
 per-unit Block-ELL packing, the selective or overlapped x exchange and
 the batched SpMM inside iterative solvers — on an NVIDIA GPU, with the
-SpMM as a hand-written CUDA kernel (:mod:`repro_torch.kernels`). The
+SpMM as a hand-written CUDA kernel (:mod:`repro_torch.kernels`), and
+the multi-tenant serving engine over it (:mod:`repro_torch.serve`). The
 public surface is :mod:`repro_torch.api`::
 
     from repro_torch.api import Topology, distribute

@@ -17,8 +17,10 @@ Sessions compute on the card unless ``distribute(..., device="cpu")``
 asks for the CPU. Everything pluggable is a string-keyed registry entry:
 partitioners (``NL-HL NL-HC NC-HL NC-HC``, generic ``XX-YY`` combos,
 ``nezgt``, ``hyper``), exchanges (``replicated``, ``selective``,
-``overlap``, ``overlap:K``), executors (``simulate``, ``reference``) and
-solvers (``power_iteration block_power_iteration jacobi pagerank cg``).
+``overlap``, ``overlap:K``), executors (``simulate``, ``reference``),
+solvers (``power_iteration block_power_iteration jacobi pagerank cg``)
+and the serving engine's batch steppers (``pagerank jacobi spmv cg``;
+:mod:`repro_torch.serve`).
 """
 from repro_torch.api.exchange import EXCHANGES, register_exchange, resolve_exchange
 from repro_torch.api.executors import EXECUTORS, register_executor
@@ -31,7 +33,14 @@ from repro_torch.api.partitioners import (
 )
 from repro_torch.api.registry import Registry
 from repro_torch.api.session import SparseSession, distribute
-from repro_torch.api.solvers import SOLVERS, SolveResult, register_solver
+from repro_torch.api.solvers import (
+    SOLVERS,
+    STEPPERS,
+    BatchStepper,
+    SolveResult,
+    register_solver,
+    register_stepper,
+)
 from repro_torch.api.topology import Topology
 
 __all__ = [
@@ -39,16 +48,19 @@ __all__ = [
     "distribute",
     "SparseSession",
     "SolveResult",
+    "BatchStepper",
     "PartitionResult",
     "Registry",
     "PARTITIONERS",
     "EXCHANGES",
     "EXECUTORS",
     "SOLVERS",
+    "STEPPERS",
     "register_partitioner",
     "register_exchange",
     "register_executor",
     "register_solver",
+    "register_stepper",
     "resolve_partitioner",
     "resolve_exchange",
     "session_from_numpy",

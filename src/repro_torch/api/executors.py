@@ -75,6 +75,10 @@ def simulate_executor(session: "SparseSession") -> SpmvFn:
 
     def spmv(x: np.ndarray) -> np.ndarray:
         xt = torch.as_tensor(np.asarray(x, np.float32), device=device)
-        return mv(xt).cpu().numpy()
+        # Row-major out, as the JAX package's arrays are: numpy's reductions
+        # over axis -1 (the steppers' norms and dots) sum a row in an order
+        # that depends on the layout, so a transposed [B, N] view would
+        # round row j of a batch apart from the same row alone.
+        return mv(xt).contiguous().cpu().numpy()
 
     return spmv

@@ -6,9 +6,10 @@ exchange planning — and hands back a session whose ``spmv`` / ``solve``
 / ``costs`` methods run it under any registered executor, on the
 session's device (the card unless the caller asks for the CPU).
 
-Not ported yet (listed in ROADMAP.md): the plan cache (``cache_dir``,
-``save`` / ``load``), ``update``, ``verify`` / ``validate=``, and the
-serving ``batch_stepper`` / ``solve_batch``.
+The serving engine's unit, :meth:`SparseSession.batch_stepper`, and
+:meth:`SparseSession.solve_batch` are here too. Not ported yet (listed
+in ROADMAP.md): the plan cache (``cache_dir``, ``save`` / ``load``),
+``update``, ``verify`` / ``validate=``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from repro_torch import resolve_device
 from repro_torch.api.exchange import resolve_exchange
 from repro_torch.api.executors import EXECUTORS, SpmvFn
 from repro_torch.api.partitioners import PartitionResult, resolve_partitioner
-from repro_torch.api.solvers import SOLVERS, SolveResult
+from repro_torch.api.solvers import SOLVERS, STEPPERS, BatchStepper, SolveResult
 from repro_torch.api.topology import Topology
 from repro_torch.pmvc.dist import make_simulate_fn, pad_x, phase_costs, unblock_y
 from repro_torch.pmvc.plan_device import (
@@ -134,6 +135,63 @@ class SparseSession:
         ``SolveResult.iters_run`` (``iters`` is the *budget* argument).
         """
         return SOLVERS.get(solver)(self, **kw)
+
+    def batch_stepper(self, solver: str, slots: int, **config) -> BatchStepper:
+        """Instantiate the slot-batched stepper for a registered
+        steppable solver (``"pagerank"``, ``"jacobi"``, ``"spmv"``,
+        ``"cg"``) — the unit the serving engine schedules. ``config`` is
+        the solver's per-lane configuration (e.g. ``damping=`` for
+        pagerank); requests sharing a stepper must share it."""
+        return STEPPERS.get(solver)(self, slots, **config)
+
+    def solve_batch(
+        self,
+        solver: str,
+        payloads: list,
+        *,
+        iters: int = 50,
+        tol: float = 0.0,
+        **config,
+    ) -> list:
+        """Solve B independent requests through one slot-batched stepper
+        — one batched SpMM per iteration for the whole group.
+
+        ``payloads`` is a list of per-request keyword dicts (what
+        ``seeds=`` / ``b=`` / ``x=`` would be on a direct solve, with
+        1-D ``[N]`` operands). Returns one :class:`SolveResult` per
+        payload, each bitwise equal to the matching direct batched-of-1
+        ``solve`` call; per-request tol early-stop freezes converged
+        slots without stopping the rest.
+        """
+        stepper = self.batch_stepper(solver, len(payloads), **config)
+        nreq = len(payloads)
+        for i, payload in enumerate(payloads):
+            stepper.load(i, **payload)
+        budget = iters if stepper.fixed_iters is None else stepper.fixed_iters
+        active = np.ones(nreq, dtype=bool)
+        residuals: list = [[] for _ in range(nreq)]
+        for _ in range(budget):
+            if not active.any():
+                break
+            res = stepper.step(active)
+            for i in np.nonzero(active)[0]:
+                residuals[i].append(float(res[i]))
+                if tol and res[i] < tol:
+                    active[i] = False
+        out = []
+        for i in range(nreq):
+            hist = residuals[i]
+            out.append(
+                SolveResult(
+                    solver=solver,
+                    x=stepper.extract(i),
+                    value=hist[-1] if hist else 0.0,
+                    residuals=hist,
+                    iters_run=len(hist),
+                    converged=bool(tol and hist and hist[-1] < tol),
+                )
+            )
+        return out
 
     # -- introspection -----------------------------------------------------
 
@@ -298,12 +356,12 @@ def distribute(
     if cache_dir is not None:
         raise NotImplementedError(
             "cache_dir: the plan cache (repro/api/plancache.py) is not ported "
-            "yet; see ROADMAP.md, Queue 1, item 5"
+            "yet; see ROADMAP.md, Queue 1, item 3"
         )
     if validate is not None:
         raise NotImplementedError(
             "validate: the static plan linter (SparseSession.verify) is not "
-            "ported yet; see ROADMAP.md, Queue 1, item 8"
+            "ported yet; see ROADMAP.md, Queue 1, item 5"
         )
     if cache_budget_bytes is not None:
         raise ValueError("cache_budget_bytes requires cache_dir")

@@ -1,10 +1,11 @@
 """Iterative-solver drivers over a :class:`SparseSession`.
 
-The port of the JAX package's ``repro/api/solvers.py`` (its ``SOLVERS``;
-the serving ``STEPPERS`` come with the serving engine). A solver is a
-callable ``(session, *, iters, tol, **kw) -> SolveResult`` that only
-touches A through the session's SpMM, so every registered solver runs
-unchanged on every (partitioner × exchange × executor) cell.
+The port of the JAX package's ``repro/api/solvers.py``: its ``SOLVERS``
+and the serving engine's ``STEPPERS``. A solver is a callable
+``(session, *, iters, tol, **kw) -> SolveResult`` that only touches A
+through the session's SpMM, so every registered solver runs unchanged on
+every (partitioner × exchange × executor) cell. A stepper
+(:class:`BatchStepper`) is its slot-granularity serving counterpart.
 
 * **Batching** — ``block_power_iteration``, multi-source ``pagerank``
   (``seeds=[B, N]``) and ``jacobi``/``cg`` with ``b=[B, N]`` drive B
@@ -34,10 +35,25 @@ from repro_torch.api.registry import Registry
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard
     from repro_torch.api.session import SparseSession
 
-__all__ = ["SOLVERS", "SolveResult", "register_solver"]
+__all__ = [
+    "SOLVERS",
+    "STEPPERS",
+    "BatchStepper",
+    "SolveResult",
+    "register_solver",
+    "register_stepper",
+]
 
 SOLVERS = Registry("solver")
 register_solver = SOLVERS.register
+
+# Batch steppers: the slot-granularity serving counterpart of a solver.
+# A registry entry is a factory ``(session, slots, **config) ->
+# BatchStepper`` whose step() advances all ``slots`` lanes of one
+# ``[slots, N]`` state block by exactly one solver iteration through a
+# single SpMM — see :class:`BatchStepper`.
+STEPPERS = Registry("stepper")
+register_stepper = STEPPERS.register
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,8 +83,9 @@ def _link_operator(session: "SparseSession"):
     operator ``P = |A|·D⁻¹`` (+ dangling-mass restart), cached on the
     session: |A| shares the plan's tile storage
     (:meth:`SparseSession.with_value_map`) and the column scan is
-    O(nnz), so repeated pagerank solves pay the tile remap and the
-    column scan once per session."""
+    O(nnz), so repeated pagerank solves — and the serving engine's batch
+    stepper — pay the tile remap, the column scan and the hoist of |A|'s
+    tiles to the device once per session."""
     a = session.matrix
     n = a.shape[1]
     if a.shape[0] != a.shape[1]:
@@ -425,7 +442,9 @@ def pagerank(
 def _row_dot(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Per-row dot product of two ``[B, N]`` blocks, accumulated in
     float64 — a pure ``axis=-1`` reduction, so each row's value is
-    independent of every other row."""
+    independent of every other row and of the batch width B. This is
+    what lets CG's two dots per iteration ride the slot-batched serving
+    path with the bitwise engine-vs-direct guarantee."""
     return (a.astype(np.float64) * b.astype(np.float64)).sum(axis=-1)
 
 
@@ -455,8 +474,11 @@ def _cg_advance(session, z, r, p, rs):
 
 
 def _cg_batched(session, bv, iters, tol) -> SolveResult:
-    """Batched CG over ``b=[B, N]``: one residual entry per iteration
-    (max 2-norm over the batch; no initial-residual entry)."""
+    """Batched CG over ``b=[B, N]`` — shares :func:`_cg_advance` with
+    the serving stepper verbatim, so a direct batched solve and an
+    engine slot produce bitwise-identical trajectories. One residual
+    entry per iteration (max 2-norm over the batch; no initial-residual
+    entry)."""
     z = np.zeros_like(bv)
     r = bv - session.spmv(z)
     p = r.copy()
@@ -574,3 +596,279 @@ def conjugate_gradient(
         k,
         bool(tol and residuals[-1] < tol),
     )
+
+
+# ---------------------------------------------------------------------------
+# Batch steppers — the slot-granularity serving counterpart of a solver
+
+
+class BatchStepper:
+    """One solver iterating B independent requests through shared SpMMs.
+
+    A stepper owns a fixed ``[slots, N]`` state block. ``load`` writes
+    one request's payload into a slot; ``step(active)`` advances every
+    slot by exactly one solver iteration with a *single* batched SpMM,
+    using ``np.where(active[:, None], new, old)`` selects so inactive
+    slots keep their state **bitwise** frozen; ``extract(slot)`` reads a
+    finished slot's solution row.
+
+    The contract that makes serving results trustworthy: the arithmetic
+    of one slot must be *independent of every other slot* — only
+    per-row ops (the batched SpMM is per-column bitwise stable across
+    batch widths on the simulate executor: one FMA chain per output in
+    the kernel, exact gathers, a unit sum whose order does not depend on
+    B; reductions are ``axis=-1``) — so a slot's trajectory is bitwise
+    equal to a direct batched-of-1 ``session.solve`` with the same
+    payload, whatever else shares the batch and whenever slots join or
+    leave. Solvers whose iterations couple rows (block power iteration's
+    QR re-orthonormalization, power iteration's global norm) cannot be
+    slot-batched and have no stepper entry.
+
+    The state stays numpy on the host, as in the JAX package, whatever
+    the session's device: only the SpMM runs there.
+
+    ``fixed_iters`` (class attribute) caps the per-request iteration
+    budget when a "solver" completes in a known number of steps (the
+    ``spmv`` stepper: 1); ``None`` means the caller's budget applies.
+    """
+
+    solver: str = "?"
+    fixed_iters: Optional[int] = None
+
+    def __init__(self, session: "SparseSession", slots: int):
+        if slots < 1:
+            raise ValueError(f"need at least 1 slot, got {slots}")
+        self.session = session
+        self.slots = int(slots)
+        self.n = session.matrix.shape[1]
+
+    def load(self, slot: int, **payload) -> None:
+        raise NotImplementedError
+
+    def step(self, active: np.ndarray) -> np.ndarray:
+        """Advance one iteration; returns per-slot residuals ``[B]``
+        (inactive slots' entries are meaningless)."""
+        raise NotImplementedError
+
+    def extract(self, slot: int) -> np.ndarray:
+        raise NotImplementedError
+
+    # -- state capture ------------------------------------------------------
+    # Stepper state is numpy by contract (the np.where freezing that makes
+    # slot trajectories bitwise-stable), so the mutable per-slot state is
+    # exactly the set of ndarray attributes. Capturing them generically
+    # means every registered stepper — including user registrations — is
+    # snapshot/restorable without opting in, and the attribute names are
+    # the JAX package's, so a snapshot of either package's stepper
+    # restores into the other's.
+
+    def snapshot(self) -> dict:
+        """Deep copy of every ndarray attribute — the per-slot solver
+        state. Restoring it onto a fresh stepper built for the same
+        (session, slots, config) resumes the iteration bitwise."""
+        return {
+            k: v.copy() for k, v in vars(self).items() if isinstance(v, np.ndarray)
+        }
+
+    def restore(self, state: dict) -> None:
+        """Install a :meth:`snapshot` (copied — the snapshot stays valid)."""
+        for k, v in state.items():
+            setattr(self, k, v.copy())
+
+
+class _PagerankStepper(BatchStepper):
+    """Slot-batched personalized PageRank — the multi-user serving path.
+
+    Each slot's row follows exactly the host loop of
+    :func:`pagerank`: teleport-normalized seed, damping step, L1
+    renormalization, L1-diff residual. All ops are per-row, so slot
+    trajectories match direct batched-of-1 solves bitwise.
+    """
+
+    solver = "pagerank"
+
+    def __init__(self, session, slots, *, damping=0.85, normalize="auto"):
+        super().__init__(session, slots)
+        if normalize not in ("auto", "none"):
+            raise ValueError(f"normalize must be 'auto' or 'none', got {normalize!r}")
+        self.damping = float(damping)
+        self.normalize = normalize
+        if normalize == "auto":
+            self._link, self._dangling, self._inv_col = _link_operator(session)
+        else:
+            self._link, self._dangling, self._inv_col = session, None, None
+        self.r = np.zeros((self.slots, self.n), np.float32)
+        self.s = np.zeros((self.slots, self.n), np.float32)
+
+    def load(self, slot, *, seeds=None):
+        if seeds is None:
+            s = np.full(self.n, 1.0 / self.n, np.float32)
+        else:
+            s = np.asarray(seeds, np.float32)
+            if s.shape != (self.n,):
+                raise ValueError(f"seeds must be [N={self.n}], got {s.shape}")
+            mass = np.abs(s).sum(axis=-1, keepdims=True)
+            if np.any(mass == 0.0):
+                raise ValueError("each seed row needs non-zero mass")
+            s = s / mass
+        self.s[slot] = s
+        self.r[slot] = s
+
+    def step(self, active):
+        r = self.r
+        if self.normalize == "auto":
+            dmass = (r * self._dangling).sum(axis=-1, keepdims=True)
+            y = self._link.spmv(r * self._inv_col) + dmass * self.s
+        else:
+            y = self._link.spmv(r)
+        r_new = self.damping * y + (1.0 - self.damping) * self.s
+        norm = np.abs(r_new).sum(axis=-1, keepdims=True)
+        r_new = (r_new / np.maximum(norm, 1e-30)).astype(np.float32)
+        diff = np.abs(r_new - r).sum(axis=-1)
+        self.r = np.where(active[:, None], r_new, r)
+        return diff
+
+    def extract(self, slot):
+        return self.r[slot].copy()
+
+
+class _JacobiStepper(BatchStepper):
+    """Slot-batched Jacobi sweeps: z ← z + D⁻¹(b − Az) per row.
+
+    ``r0 = b − A·0`` is seeded from one zero-batch SpMV computed at
+    construction (per-column stability makes it the same column every
+    direct solve's first SpMM produces), so a slot loaded mid-stream
+    starts exactly where a fresh direct solve would.
+    """
+
+    solver = "jacobi"
+
+    def __init__(self, session, slots):
+        super().__init__(session, slots)
+        self.d = _diag_of(session)
+        if np.any(self.d == 0.0):
+            raise ValueError("jacobi needs a zero-free diagonal")
+        self.z = np.zeros((self.slots, self.n), np.float32)
+        self.r = np.zeros((self.slots, self.n), np.float32)
+        self.b = np.zeros((self.slots, self.n), np.float32)
+        self._zero_y = session.spmv(np.zeros((1, self.n), np.float32))[0]
+
+    def load(self, slot, *, b=None):
+        bv = np.ones(self.n, np.float32) if b is None else np.asarray(b, np.float32)
+        if bv.shape != (self.n,):
+            raise ValueError(f"b must be [N={self.n}], got {bv.shape}")
+        self.b[slot] = bv
+        self.z[slot] = 0.0
+        self.r[slot] = bv - self._zero_y
+
+    def step(self, active):
+        z_new = (self.z + self.r / self.d).astype(np.float32)
+        r_new = self.b - self.session.spmv(z_new)
+        rn = np.linalg.norm(r_new, axis=-1)
+        sel = active[:, None]
+        self.z = np.where(sel, z_new, self.z)
+        self.r = np.where(sel, r_new, self.r)
+        return rn
+
+    def extract(self, slot):
+        return self.z[slot].copy()
+
+
+class _SpmvStepper(BatchStepper):
+    """One-shot y = A @ x as a degenerate stepper, so raw PMVC requests
+    ride the same batched serving path as the iterative solvers."""
+
+    solver = "spmv"
+    fixed_iters = 1
+
+    def __init__(self, session, slots):
+        super().__init__(session, slots)
+        self.x = np.zeros((self.slots, self.n), np.float32)
+        self.y = np.zeros((self.slots, self.n), np.float32)
+
+    def load(self, slot, *, x):
+        xv = np.asarray(x, np.float32)
+        if xv.shape != (self.n,):
+            raise ValueError(f"x must be [N={self.n}], got {xv.shape}")
+        self.x[slot] = xv
+
+    def step(self, active):
+        y = self.session.spmv(self.x)
+        self.y = np.where(active[:, None], y, self.y)
+        return np.zeros(self.slots, np.float32)
+
+    def extract(self, slot):
+        return self.y[slot].copy()
+
+
+class _CgStepper(BatchStepper):
+    """Slot-batched conjugate gradient: one shared SpMM (A·P) plus two
+    ``axis=-1`` dot reductions per iteration drive B independent SPD
+    solves.
+
+    Each slot advances through :func:`_cg_advance` — literally the
+    function the batched host driver loops, with its float64 host dots
+    (:func:`_row_dot`), never the device loop of :func:`_cg_device` — so
+    a slot's (z, r, p, rs) trajectory is bitwise a direct batched-of-1
+    ``solve("cg", b=b[None])``. The per-row float64 ``rs`` rides the
+    generic ndarray snapshot/restore like every other state block. A
+    slot that breaks down (``pᵀAp ≈ 0``) freezes at its solution and
+    burns its budget, same as the host batch.
+    """
+
+    solver = "cg"
+
+    def __init__(self, session, slots):
+        super().__init__(session, slots)
+        self.z = np.zeros((self.slots, self.n), np.float32)
+        self.r = np.zeros((self.slots, self.n), np.float32)
+        self.p = np.zeros((self.slots, self.n), np.float32)
+        self.rs = np.zeros(self.slots, np.float64)
+        self._zero_y = session.spmv(np.zeros((1, self.n), np.float32))[0]
+
+    def load(self, slot, *, b=None):
+        bv = np.ones(self.n, np.float32) if b is None else np.asarray(b, np.float32)
+        if bv.shape != (self.n,):
+            raise ValueError(f"b must be [N={self.n}], got {bv.shape}")
+        r0 = bv - self._zero_y
+        self.z[slot] = 0.0
+        self.r[slot] = r0
+        self.p[slot] = r0
+        self.rs[slot] = _row_dot(r0[None, :], r0[None, :])[0]
+
+    def step(self, active):
+        z, r, p, rs, resid = _cg_advance(
+            self.session, self.z, self.r, self.p, self.rs
+        )
+        sel = active[:, None]
+        self.z = np.where(sel, z, self.z)
+        self.r = np.where(sel, r, self.r)
+        self.p = np.where(sel, p, self.p)
+        self.rs = np.where(active, rs, self.rs)
+        return resid
+
+    def extract(self, slot):
+        return self.z[slot].copy()
+
+
+@register_stepper("pagerank")
+def pagerank_stepper(
+    session: "SparseSession", slots: int, *, damping: float = 0.85,
+    normalize: str = "auto",
+) -> BatchStepper:
+    return _PagerankStepper(session, slots, damping=damping, normalize=normalize)
+
+
+@register_stepper("jacobi")
+def jacobi_stepper(session: "SparseSession", slots: int) -> BatchStepper:
+    return _JacobiStepper(session, slots)
+
+
+@register_stepper("spmv")
+def spmv_stepper(session: "SparseSession", slots: int) -> BatchStepper:
+    return _SpmvStepper(session, slots)
+
+
+@register_stepper("cg")
+def cg_stepper(session: "SparseSession", slots: int) -> BatchStepper:
+    return _CgStepper(session, slots)

@@ -20,13 +20,13 @@
 // variants, chosen by the wrapper from type and shape before the launch
 // (repro_torch/kernels/spmv/ops.py::spmm_variant):
 //
-//   * `stream` (bm, bn <= 32, any B). A block owns one unit and a span of
-//     consecutive block-rows [r0, r1), computed once on the host
-//     (ops.py::row_spans) so that spans hold about the same number of tiles
-//     and up to 64 output rows; a row is never split between blocks. The
-//     span's tiles are one contiguous run tiles[u, row_ptr[u, r0] :
-//     row_ptr[u, r1]], and stage k of the block holds the k-th tile of each
-//     of its rows, so all rows work at once. Stages stream through a
+//   * `stream` (bm = 8, 16, 24 or 32, bn = 8, 16 or 32, any B). A block
+//     owns one unit and a span of consecutive block-rows [r0, r1), computed
+//     once on the host (ops.py::row_spans) so that spans hold about the
+//     same number of tiles and up to 64 output rows; a row is never split
+//     between blocks. The span's tiles are one contiguous run
+//     tiles[u, row_ptr[u, r0] : row_ptr[u, r1]], and stage k of the block
+//     holds the k-th tile of each of its rows, so all rows work at once. Stages stream through a
 //     two-stage ring in shared memory with 16-byte cp.async, each tile with
 //     the x block tile_src names for it; the copy of stage k + 1 (a tile for
 //     every row) runs under stage k's FMAs, one __syncthreads a stage.
@@ -38,8 +38,9 @@
 //     Registers are capped at 64 a thread, so four 256-thread blocks share
 //     an SM and one's copies hide under the others' FMAs. At small B the
 //     spans make a block's outputs fill its threads (64 output rows).
-//   * `simt` (any bm, bn; the first kernel of the port): a block per (unit,
-//     block-row, column chunk), each tile and its x block staged
+//   * `simt` (every other shape: bm up to kMaxOutputs, a float32 tile and
+//     x block within kMaxSmemBytes; the first kernel of the port): a block
+//     per (unit, block-row, column chunk), each tile and its x block staged
 //     synchronously, then read scalar by scalar from shared memory.
 //
 // In both, each tile is read from device memory once per column chunk, each
@@ -148,6 +149,7 @@ int launch_simt(const void* tiles, const void* row_ptr, const void* tile_src,
            const void* xsrc, void* out, int units, int ntiles, int nrb, int bm,
            int bn, int batch, long long x_unit_stride, void* stream) {
   if (units == 0 || nrb == 0) return (int)cudaSuccess;
+  if (bm > kMaxOutputs) return (int)cudaErrorInvalidValue;  // rows past it unwritten
   // Columns per block: as many as keep bm * chunk within kMaxOutputs.
   int chunk = kMaxOutputs / bm;
   if (chunk < 1) chunk = 1;
@@ -173,7 +175,8 @@ int launch_simt(const void* tiles, const void* row_ptr, const void* tile_src,
 }
 
 // ---------------------------------------------------------------------------
-// stream: bm, bn <= 32; a block per (row span, column chunk).
+// stream: bm a multiple of 8 up to 32, bn in {8, 16, 32}; a block per (row
+// span, column chunk).
 
 constexpr int kSpanOutRows = 64;  // output rows a span holds at most (ops.py::SPAN_OUT_ROWS)
 constexpr int kSpanRowsMax = kSpanOutRows / 8;  // block-rows of a span at most (bm >= 8)

@@ -12,35 +12,56 @@ over the unit axis. On a CUDA tensor it launches one of the hand-written
 kernels of ``csrc/bell_spmm.cu`` (built at first use), the variant that
 :func:`spmm_variant` names from type and shape alone, before the launch:
 
-* ``stream`` — tiles up to 32 × 32, any B: a block per span of
-  block-rows (:func:`row_spans`), tiles streamed through a ``cp.async``
-  ring, a register patch of outputs a thread;
-* ``simt`` — larger tiles: a block per (unit, block-row, column chunk).
+* ``stream`` — ``bm`` a multiple of 8 up to 32 and ``bn`` in {8, 16,
+  32}, any B: a block per span of block-rows (:func:`row_spans`), tiles
+  streamed through a ``cp.async`` ring, a register patch of outputs a
+  thread;
+* ``simt`` — every other shape, within its shared memory
+  (:func:`simt_limit`): a block per (unit, block-row, column chunk).
 
 Both keep one summation order, so column b of a result is bitwise the
 same whatever B and whichever variant ran. On a CPU tensor it runs the
 plain version :func:`repro_torch.kernels.spmv.ref.bell_spmm_plain`.
 There is no other path: a tensor elsewhere raises.
+
+The single-shard entry points of the JAX package's
+``repro/kernels/spmv/ops.py`` sit on top: :func:`pack_inputs` puts one
+:class:`repro_torch.sparse.bell.BellShard` and its x on a device,
+:func:`spmm_shard` / :func:`spmv_shard` run the kernel on it as one
+unit, and :func:`spmm_shard_ref` / :func:`spmv_shard_ref` are the plain
+version on the same arguments.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels.build import load
 from repro_torch.kernels.spmv.ref import bell_spmm_plain
+from repro_torch.sparse.bell import BellShard, pad_x_blocks
 
-__all__ = ["BLOCK_SIZES", "VARIANTS", "BellTiles", "bell_tiles", "bell_spmm", "row_spans",
-           "spmm_variant"]
+__all__ = ["BLOCK_SIZES", "VARIANTS", "BellTiles", "bell_tiles", "bell_spmm", "pack_inputs",
+           "row_spans", "simt_limit", "spmm_shard", "spmm_shard_ref", "spmm_variant",
+           "spmv_shard", "spmv_shard_ref"]
 
-# Tile heights and widths the kernel takes.
+# The tile sides of chip_smoke.py's kernel sweep. Any bm, bn >= 1 is taken:
+# the stream variant's shapes below, every other one on simt.
 BLOCK_SIZES = (8, 16, 32, 64, 128)
 _TYPES = {torch.float32: "f32", torch.float16: "f16"}
 VARIANTS = ("stream", "simt")
-STREAM_MAX_BLOCK = 32  # the stream variant's largest bm and bn
+# The shapes csrc/bell_spmm.cu instantiates for stream (launch_stream).
+STREAM_MAX_BM = 32  # bm a multiple of 8 up to this
+STREAM_BN = (8, 16, 32)
+# The simt kernel's limits (csrc/bell_spmm.cu): a block holds at most
+# SIMT_MAX_OUTPUTS outputs (bm x its column chunk) and SIMT_MAX_SMEM_BYTES
+# of float32 tile and x block in shared memory.
+SIMT_MAX_OUTPUTS = 1024
+SIMT_MAX_SMEM_BYTES = 96 * 1024
 # A span holds at most this many output rows (64 // bm block-rows: a
 # block's threads, csrc/bell_spmm.cu kSpanOutRows) and, unless it is one
 # row, at most SPAN_TILES_PER_ROW tiles for each of them.
@@ -50,11 +71,28 @@ SPAN_TILES_PER_ROW = 4
 
 def spmm_variant(dtype: torch.dtype, bm: int, bn: int, batch: int) -> str:
     """The CUDA kernel that takes ``dtype`` tiles of ``bm × bn`` at batch
-    width ``batch``: ``stream`` when both sides are at most 32, at every
-    B ≥ 1; ``simt`` otherwise. Pure: type and shape alone decide."""
-    if dtype in _TYPES and bm <= STREAM_MAX_BLOCK and bn <= STREAM_MAX_BLOCK:
+    width ``batch``: ``stream`` for the shapes it is instantiated for (bm
+    a multiple of 8 up to 32, bn in {8, 16, 32}), at every B ≥ 1;
+    ``simt`` otherwise. Pure: type and shape alone decide."""
+    if dtype in _TYPES and bm % 8 == 0 and bm <= STREAM_MAX_BM and bn in STREAM_BN:
         return "stream"
     return "simt"
+
+
+def simt_limit(bm: int, bn: int, batch: int) -> str | None:
+    """Why the ``simt`` kernel cannot take ``bm × bn`` tiles at batch width
+    ``batch``, or None when it can. It gives a block ``max(1, 1024 // bm)``
+    columns (at most B) and stages the float32 tile and that x block in
+    shared memory, so a tile taller than ``SIMT_MAX_OUTPUTS`` rows, or a
+    tile and x block over ``SIMT_MAX_SMEM_BYTES``, does not fit."""
+    if bm > SIMT_MAX_OUTPUTS:
+        return f"bm={bm} exceeds the simt kernel's {SIMT_MAX_OUTPUTS} outputs a block"
+    chunk = min(max(1, SIMT_MAX_OUTPUTS // bm), batch)
+    smem = 4 * (bm * bn + bn * chunk)
+    if smem > SIMT_MAX_SMEM_BYTES:
+        return (f"a {bm}x{bn} float32 tile and its {bn}x{chunk} x block take {smem} bytes, "
+                f"over the simt kernel's {SIMT_MAX_SMEM_BYTES} bytes of shared memory")
+    return None
 
 
 def row_spans(row_ptr: np.ndarray, bm: int) -> np.ndarray:
@@ -135,8 +173,8 @@ def bell_tiles(
     if tiles.dim() != 4 or tuple(tiles.shape[:2]) != (u_n, t_n):
         raise ValueError(f"tiles must be [U={u_n}, T={t_n}, bm, bn], got {tuple(tiles.shape)}")
     bm, bn = int(tiles.shape[2]), int(tiles.shape[3])
-    if bm not in BLOCK_SIZES or bn not in BLOCK_SIZES:
-        raise ValueError(f"tile shape ({bm}, {bn}) not in {BLOCK_SIZES}")
+    if bm < 1 or bn < 1:
+        raise ValueError(f"tile shape ({bm}, {bn}) must be at least 1 x 1")
     if tiles.dtype not in _TYPES:
         raise TypeError(f"tiles must be float32 or float16, got {tiles.dtype}")
     if counts.shape != (u_n,) or (counts < 0).any() or (counts > t_n).any():
@@ -203,8 +241,9 @@ def bell_spmm(bt: BellTiles, xsrc: torch.Tensor) -> torch.Tensor:
     CUDA tensors launch the kernel that :func:`spmm_variant` names on the
     current stream and add one to ``bell_spmm.launches`` and to that
     variant's ``bell_spmm.variant_launches``; the ``stream`` kernel wants
-    ``tiles`` and ``xsrc`` 16-byte aligned and raises otherwise. CPU
-    tensors run the plain version."""
+    ``tiles`` and ``xsrc`` 16-byte aligned, and a shape past the ``simt``
+    kernel's shared memory (:func:`simt_limit`) raises ``ValueError``
+    before the launch. CPU tensors run the plain version."""
     tiles = bt.tiles
     u_n, t_n, bm, bn = tiles.shape
     if xsrc.device != tiles.device:
@@ -237,6 +276,10 @@ def bell_spmm(bt: BellTiles, xsrc: torch.Tensor) -> torch.Tensor:
     if variant == "stream" and (tiles.data_ptr() % 16 or xsrc.data_ptr() % 16):
         raise ValueError("the stream kernel copies 16-byte pieces: tiles and xsrc must "
                          "start on 16-byte boundaries")
+    if variant == "simt":
+        limit = simt_limit(bm, bn, batch)
+        if limit is not None:
+            raise ValueError(limit)
     out = torch.empty((u_n, bt.nrb, bm, batch), dtype=torch.float32, device=tiles.device)
     ustride = 0 if xsrc.shape[0] == 1 else int(xsrc.shape[1]) * bn * batch
     lib = _library()
@@ -261,3 +304,82 @@ def bell_spmm(bt: BellTiles, xsrc: torch.Tensor) -> torch.Tensor:
 
 bell_spmm.launches = 0
 bell_spmm.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+# -- single-shard entry points ---------------------------------------------
+
+
+def pack_inputs(
+    shard: BellShard, x: np.ndarray, bn: int, *, device=None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One shard's ``(tiles, tile_row, tile_col, x_blocks)`` as tensors on
+    ``device`` (the card unless the caller names another). ``x`` may be
+    ``[N]`` (x blocks come back ``[NCB, bn]``) or a batch ``[B, N]``
+    (``[NCB, bn, B]``)."""
+    dev = resolve_device(device)
+    ncb = -(-x.shape[-1] // bn)
+    return (
+        torch.as_tensor(shard.tiles, device=dev),
+        torch.as_tensor(shard.tile_row, device=dev),
+        torch.as_tensor(shard.tile_col, device=dev),
+        torch.as_tensor(np.ascontiguousarray(pad_x_blocks(x, ncb, bn)), device=dev),
+    )
+
+
+def spmm_shard(
+    tiles: torch.Tensor,  # [T, bm, bn]
+    tile_row: torch.Tensor,  # [T] local block-row
+    tile_col: torch.Tensor,  # [T] global block-col
+    x_blocks: torch.Tensor,  # [NCB, bn, B]
+    num_row_blocks: int,
+) -> torch.Tensor:
+    """One shard's batched PMVC: the local y blocks ``[R, bm, B]``. On a
+    CUDA tensor one :func:`bell_spmm` launch as one unit; on a CPU tensor
+    the plain version. Every one of the shard's T tiles counts, padding
+    included: a padding tile is zero at row 0, so it adds nothing, as in
+    the JAX package's kernel, which visits all T."""
+    bt = bell_tiles(
+        tiles[None], tile_row.cpu().numpy()[None], tile_col.cpu().numpy()[None],
+        np.array([tiles.shape[0]]), num_row_blocks,
+    )
+    return bell_spmm(bt, x_blocks[None].contiguous())[0]
+
+
+def spmv_shard(
+    tiles: torch.Tensor,
+    tile_row: torch.Tensor,
+    tile_col: torch.Tensor,
+    x_blocks: torch.Tensor,  # [NCB, bn]
+    num_row_blocks: int,
+) -> torch.Tensor:
+    """One shard's PMVC: the local y blocks ``[R, bm]`` (B = 1 of
+    :func:`spmm_shard`)."""
+    return spmm_shard(tiles, tile_row, tile_col, x_blocks[..., None], num_row_blocks)[..., 0]
+
+
+def spmm_shard_ref(
+    tiles: torch.Tensor,
+    tile_row: torch.Tensor,
+    tile_col: torch.Tensor,
+    x_blocks: torch.Tensor,  # [NCB, bn, B]
+    num_row_blocks: int,
+) -> torch.Tensor:
+    """The plain version of :func:`spmm_shard` on any device:
+    ``y[r] = Σ_{t: tile_row[t] = r} tiles[t] @ x_blocks[tile_col[t]]``."""
+    return bell_spmm_plain(
+        tiles[None], tile_row[None], tile_col[None], np.array([tiles.shape[0]]),
+        x_blocks[None], num_row_blocks,
+    )[0]
+
+
+def spmv_shard_ref(
+    tiles: torch.Tensor,
+    tile_row: torch.Tensor,
+    tile_col: torch.Tensor,
+    x_blocks: torch.Tensor,  # [NCB, bn]
+    num_row_blocks: int,
+) -> torch.Tensor:
+    """Single-vector (B = 1) view of :func:`spmm_shard_ref`."""
+    return spmm_shard_ref(
+        tiles, tile_row, tile_col, x_blocks[..., None], num_row_blocks
+    )[..., 0]

@@ -1,7 +1,9 @@
 """Block-ELL (BELL) packing helpers — the PMVC matrix layout.
 
 A copy of the JAX package's ``repro/sparse/bell.py``, cut to what the
-port uses, so that both packages plan bit-identically. DESIGN.md §2: A
+port uses, so that both packages plan bit-identically: the stacked
+per-unit helpers of the planner and the per-shard packing
+(:func:`pack_bell`) behind the single-shard kernel entry points. DESIGN.md §2: A
 is re-blocked into dense (bm × bn) tiles, empty tiles are dropped, and
 every unit's tile list is padded to the global maximum T — the padding
 ratio realizes the paper's load-balance metric as wasted FLOPs.
@@ -17,13 +19,17 @@ Tiles are sorted by ``tile_row`` so the kernel can stream-accumulate.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.sparse.formats import COO
 
 __all__ = [
+    "BellShard",
+    "BellMatrix",
+    "pack_bell",
     "tile_counts",
     "pad_x_blocks",
     "split_tiles_local_halo",
@@ -125,6 +131,48 @@ def split_tiles_local_halo(
     return idx[is_local], idx[~is_local]
 
 
+@dataclasses.dataclass(frozen=True)
+class BellShard:
+    """One compute unit's padded tile set."""
+
+    tiles: np.ndarray  # [T, bm, bn] float32
+    tile_row: np.ndarray  # [T] int32, local block-row of the tile
+    tile_col: np.ndarray  # [T] int32, global block-col of the tile
+    row_blocks: np.ndarray  # [R] int32, global block-row ids owned (local r -> global)
+    num_real: int  # tiles before padding
+
+    @property
+    def t(self) -> int:
+        return int(self.tiles.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class BellMatrix:
+    """All shards of one matrix + global metadata."""
+
+    shape: Tuple[int, int]
+    bm: int
+    bn: int
+    shards: List[BellShard]
+    lb_tiles: float  # max/avg real tiles per shard (LB realized as padding)
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def t(self) -> int:
+        return self.shards[0].t if self.shards else 0
+
+    @property
+    def padded_tile_total(self) -> int:
+        return sum(s.t for s in self.shards)
+
+    @property
+    def real_tile_total(self) -> int:
+        return sum(s.num_real for s in self.shards)
+
+
 def tile_counts(a: COO, bm: int, bn: int) -> np.ndarray:
     """Non-empty (bm × bn) tiles per block-row — the NEZGT weight vector of
     the TPU adaptation (DESIGN.md §5.2)."""
@@ -135,3 +183,73 @@ def tile_counts(a: COO, bm: int, bn: int) -> np.ndarray:
     uniq = np.unique(key)
     counts = np.bincount((uniq // (-(-a.shape[1] // bn))).astype(np.int64), minlength=nrb)
     return counts.astype(np.int64)
+
+
+def pack_bell(
+    a: COO,
+    owner_of_block_row: Sequence[int] | np.ndarray,
+    num_shards: int,
+    bm: int,
+    bn: int,
+) -> BellMatrix:
+    """Pack ``a`` into per-shard BELL arrays given a block-row → shard map
+    (produced by NEZGT over :func:`tile_counts`)."""
+    n, m = a.shape
+    nrb = -(-n // bm)
+    ncb = -(-m // bn)
+    owner = np.asarray(owner_of_block_row, dtype=np.int32)
+    assert owner.shape[0] == nrb, (owner.shape, nrb)
+
+    rb = (a.row // bm).astype(np.int64)
+    cb = (a.col // bn).astype(np.int64)
+    tile_key = rb * ncb + cb
+    order = np.argsort(tile_key, kind="stable")
+    tk_sorted = tile_key[order]
+    uniq_keys, first = np.unique(tk_sorted, return_index=True)
+
+    # Dense tile construction: scatter elements into their tile.
+    tile_of_elem = np.searchsorted(uniq_keys, tile_key)
+    num_tiles = uniq_keys.shape[0]
+    all_tiles = np.zeros((num_tiles, bm, bn), dtype=np.float32)
+    all_tiles[tile_of_elem, a.row % bm, a.col % bn] = a.val.astype(np.float32)
+    tile_rb = (uniq_keys // ncb).astype(np.int64)
+    tile_cb = (uniq_keys % ncb).astype(np.int32)
+
+    # Group tiles per shard.
+    shard_of_tile = owner[tile_rb]
+    real_counts = np.bincount(shard_of_tile, minlength=num_shards)
+    t_max = max(int(real_counts.max(initial=0)), 1)
+
+    shards: List[BellShard] = []
+    for s in range(num_shards):
+        sel = np.nonzero(shard_of_tile == s)[0]
+        # Local block-row numbering: global block-rows owned by shard s,
+        # in ascending order (rows this shard produces y for).
+        my_rows = np.nonzero(owner == s)[0].astype(np.int32)
+        g2l = {int(g): i for i, g in enumerate(my_rows)}
+        loc_row = np.array([g2l[int(g)] for g in tile_rb[sel]], dtype=np.int32)
+        # Sort by local row so the kernel accumulates contiguously.
+        srt = np.argsort(loc_row, kind="stable")
+        sel = sel[srt]
+        loc_row = loc_row[srt]
+        pad = t_max - sel.shape[0]
+        tiles = np.concatenate(
+            [all_tiles[sel], np.zeros((pad, bm, bn), dtype=np.float32)], axis=0
+        )
+        tile_row = np.concatenate(
+            [loc_row, np.zeros(pad, dtype=np.int32)]
+        )
+        tile_col = np.concatenate([tile_cb[sel], np.zeros(pad, dtype=np.int32)])
+        shards.append(
+            BellShard(
+                tiles=tiles,
+                tile_row=tile_row.astype(np.int32),
+                tile_col=tile_col.astype(np.int32),
+                row_blocks=my_rows,
+                num_real=int(sel.shape[0]),
+            )
+        )
+
+    avg = real_counts.mean() if num_shards else 0.0
+    lb = float(real_counts.max() / avg) if avg > 0 else 1.0
+    return BellMatrix(shape=a.shape, bm=bm, bn=bn, shards=shards, lb_tiles=lb)

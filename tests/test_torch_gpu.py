@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel (Block-ELL SpMM, grouped matmul,
 flash attention) against its plain version, two launches bitwise equal
-and the launch counter rising, and a small session end to end against
-the float64 oracle.
+and the launch counter rising, a small session end to end against the
+float64 oracle, the single-shard entry points, and the serving engine
+bitwise its direct solves.
 
 Marked ``gpu``; each test asks a fixture for the card and skips without
 one. The file imports no JAX, so it also runs where only PyTorch is
@@ -13,11 +14,24 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import Topology, distribute
+from repro_torch.api import STEPPERS, Topology, distribute
+from repro_torch.core.nezgt import nezgt_partition
 from repro_torch.kernels.attn import attention_plain, attention_variant, flash_attention, mha
 from repro_torch.kernels.gmm import gmm_plain, gmm_variant, grouped_matmul, plan_groups
-from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles, spmm_variant
-from repro_torch.sparse.generate import banded_coo
+from repro_torch.kernels.spmv import (
+    bell_spmm,
+    bell_spmm_plain,
+    bell_tiles,
+    pack_inputs,
+    spmm_shard,
+    spmm_shard_ref,
+    spmm_variant,
+    spmv_shard,
+)
+from repro_torch.serve import SparseServeEngine, Status
+from repro_torch.sparse.bell import pack_bell, tile_counts
+from repro_torch.sparse.formats import COO
+from repro_torch.sparse.generate import banded_coo, random_coo
 
 pytestmark = pytest.mark.gpu
 
@@ -93,6 +107,104 @@ def test_kernel_refuses_misaligned_sources(cuda):
     x = flat[1:].view(3, nsrc, 16, 8)  # 4 bytes past a 16-byte boundary
     with pytest.raises(ValueError, match="16-byte"):
         bell_spmm(bt, x)
+
+
+# Tile shapes off the kernel's sweep grid: (24, 16) reaches stream (a new
+# bm), the others simt.
+@pytest.mark.parametrize("bm,bn", [(24, 16), (16, 24), (12, 12), (4, 4), (16, 12)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float16, 2e-2)])
+@pytest.mark.parametrize("b", [1, 8])
+def test_kernel_takes_any_tile_shape(cuda, bm, bn, dtype, tol, b):
+    rng = np.random.default_rng(bm * 100 + bn)
+    tiles, rows, src, counts, nrb, nsrc = _tile_set(rng, bm, bn)
+    bt = bell_tiles(torch.as_tensor(tiles, device=cuda).to(dtype), rows, src, counts, nrb)
+    x = torch.as_tensor(rng.standard_normal((3, nsrc, bn, b)).astype(np.float32),
+                        device=cuda).to(dtype)
+    variant = spmm_variant(dtype, bm, bn, b)
+    assert variant == ("stream" if (bm, bn) == (24, 16) else "simt")
+    before = bell_spmm.variant_launches[variant]
+    y = bell_spmm(bt, x)
+    assert bell_spmm.variant_launches[variant] == before + 1
+    y_plain = bell_spmm_plain(bt.tiles, bt.tile_row, bt.tile_src, bt.counts, x, nrb)
+    assert float((y - y_plain).abs().max() / y_plain.abs().max()) <= tol
+    for j in range(b):
+        assert torch.equal(y[..., j:j + 1], bell_spmm(bt, x[..., j:j + 1].contiguous()))
+    assert torch.equal(y, _simt(bt, x))
+
+
+def test_kernel_refuses_tiles_past_simt_shared_memory(cuda):
+    rng = np.random.default_rng(5)
+    tiles, rows, src, counts, nrb, nsrc = _tile_set(rng, 128, 200, t_max=2)
+    bt = bell_tiles(torch.as_tensor(tiles, device=cuda), rows, src, counts, nrb)
+    x = torch.zeros((1, nsrc, 200, 1), device=cuda)
+    before = bell_spmm.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        bell_spmm(bt, x)
+    assert bell_spmm.launches == before
+
+
+def test_spmm_shard_on_the_card(cuda):
+    a = random_coo(192, 1500, seed=0)
+    owner = nezgt_partition(tile_counts(a, 16, 16), 3).assignment
+    bell = pack_bell(a, owner, 3, 16, 16)
+    xs = np.random.default_rng(1).standard_normal((8, 192)).astype(np.float32)
+    for shard in bell.shards:
+        r = len(shard.row_blocks)
+        tiles, tr, tc, xb = pack_inputs(shard, xs, 16)
+        assert tiles.device.type == "cuda"
+        before = bell_spmm.launches
+        y = spmm_shard(tiles, tr, tc, xb, r)
+        assert bell_spmm.launches == before + 1
+        y_ref = spmm_shard_ref(tiles, tr, tc, xb, r)
+        assert float((y - y_ref).abs().max() / y_ref.abs().max()) <= 1e-5
+        _, _, _, xb1 = pack_inputs(shard, xs[3], 16)
+        assert torch.equal(spmv_shard(tiles, tr, tc, xb1, r), y[..., 3])
+
+
+def _diag_heavy_coo(seed, n=96, nnz=700):
+    """tests/test_serve_sparse.py's graph: random entries, a dominant diagonal."""
+    rng = np.random.default_rng(seed)
+    d = np.arange(n, dtype=np.int32)
+    row = np.concatenate([rng.integers(0, n, nnz).astype(np.int32), d])
+    col = np.concatenate([rng.integers(0, n, nnz).astype(np.int32), d])
+    val = np.concatenate([rng.standard_normal(nnz).astype(np.float32),
+                          np.full(n, 8.0, np.float32)])
+    order = np.argsort(row, kind="stable")
+    return COO((n, n), row[order], col[order], val[order])
+
+
+@pytest.mark.parametrize("exchange", ["replicated", "selective", "overlap:2"])
+def test_engine_is_the_direct_solve_on_the_card(cuda, exchange):
+    """Every stepper served at B = 4 slots, bitwise its direct batched-of-1
+    solve on the same card session, and the B = 4 spmv's columns bitwise
+    the B = 1 spmv."""
+    sess = distribute(_diag_heavy_coo(1), topology=Topology(2, 2), block=16,
+                      exchange=exchange)
+    assert sess.device.type == "cuda"
+    rng = np.random.default_rng(3)
+    x = rng.random((4, 96)).astype(np.float32)
+    y = sess.spmv(x)
+    for j in range(4):
+        assert np.array_equal(y[j], sess.spmv(x[j:j + 1])[0])
+    eng = SparseServeEngine(batch_slots=4, default_iters=6)
+    eng.register_graph("g", sess)
+    keys = {"pagerank": "seeds", "jacobi": "b", "spmv": "x", "cg": "b"}
+    assert set(keys) == set(STEPPERS.names())
+    sent = []
+    for solver, key in keys.items():
+        for _ in range(5):  # more than the slots: refill mid-flight
+            payload = {key: rng.random(96).astype(np.float32)}
+            sent.append((eng.submit("g", solver, payload=payload, tol=1e-4), solver, payload))
+    eng.run_until_drained()
+    for t, solver, payload in sent:
+        assert t.status is Status.DONE
+        if solver == "spmv":
+            assert np.array_equal(t.result.x, sess.spmv(payload["x"][None])[0])
+            continue
+        ref = sess.solve(solver, iters=6, tol=1e-4, **{k: v[None] for k, v in payload.items()})
+        assert np.array_equal(t.result.x, ref.x[0]), solver
+        assert t.result.residuals == ref.residuals, solver
+        assert t.result.iters_run == ref.iters_run
 
 
 def test_session_on_the_card_matches_the_oracle(cuda):

@@ -17,11 +17,13 @@ from repro_torch.api import (
     EXECUTORS,
     PARTITIONERS,
     SOLVERS,
+    STEPPERS,
     Topology,
     distribute,
     session_from_numpy,
 )
 from repro_torch.kernels.spmv import bell_spmm, bell_tiles
+from repro_torch.serve import SparseServeEngine
 from repro_torch.sparse.generate import random_coo
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,6 +42,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         import repro_torch, repro_torch.api, repro_torch.kernels.spmv
         import repro_torch.kernels.gmm, repro_torch.kernels.attn
         import repro_torch.kernels.build, repro_torch.pmvc.dist
+        import repro_torch.serve, repro_torch.serve.driver, repro_torch.serve.sparse
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "jaxlib", "repro")
                      or m.startswith(("jax.", "jaxlib.", "repro.")))
@@ -119,6 +122,7 @@ def test_slice_surface():
     assert set(SOLVERS.names()) == {
         "power_iteration", "block_power_iteration", "jacobi", "pagerank", "cg",
     }
+    assert set(STEPPERS.names()) == {"pagerank", "jacobi", "spmv", "cg"}
 
 
 def test_unported_parts_say_so():
@@ -131,3 +135,24 @@ def test_unported_parts_say_so():
     sess = distribute(a, topology=topo, device="cpu")
     with pytest.raises(KeyError, match="unknown executor 'shard_map'"):
         sess.spmv(np.ones(64, np.float32), executor="shard_map")
+
+
+def test_unported_serving_parts_say_so():
+    """What the serving slice leaves out raises, naming its ROADMAP item."""
+    sess = distribute(random_coo(64, 300, seed=2), topology=Topology(2, 1), device="cpu")
+    for kw in ({"fault_injector": object()}, {"heartbeat": object()},
+               {"recovery_dir": "recovery"}, {"latency_probe": dict}):
+        with pytest.raises(NotImplementedError, match="item 4"):
+            SparseServeEngine(**kw)
+    eng = SparseServeEngine()
+    with pytest.raises(NotImplementedError, match="plan cache.*item 3"):
+        eng.register_graph("g", "plans/g.npz")
+    eng.register_graph("g", sess)
+    with pytest.raises(NotImplementedError, match="item 3.*item 4"):
+        eng.update_graph("g", None)
+    with pytest.raises(NotImplementedError, match="item 3.*item 4"):
+        eng.checkpoint_graph("g")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        eng.mark_unit_silent(0)
+    with pytest.raises(TypeError, match="SparseSession"):
+        eng.register_graph("h", object())

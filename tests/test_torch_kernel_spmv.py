@@ -13,19 +13,31 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.nezgt import nezgt_partition
 from repro.kernels.spmv import bell_spmm_ref as jx_bell_spmm_ref
+from repro.kernels.spmv import pack_inputs as jx_pack_inputs
+from repro.kernels.spmv import spmm_shard_ref as jx_spmm_shard_ref
+from repro.kernels.spmv import spmv_shard_ref as jx_spmv_shard_ref
 from repro.pmvc.plan_device import pack_units as jx_pack_units
+from repro.sparse import pack_bell as jx_pack_bell
+from repro.sparse import tile_counts
 from repro.sparse.generate import banded_coo, grid5_coo, random_coo
 from repro_torch.kernels.spmv import (
     bell_spmm,
     bell_spmm_plain,
     bell_tiles,
+    pack_inputs,
     row_spans,
+    simt_limit,
+    spmm_shard,
+    spmm_shard_ref,
     spmm_variant,
+    spmv_shard,
+    spmv_shard_ref,
 )
 from repro_torch.kernels.spmv.ops import SPAN_OUT_ROWS, SPAN_TILES_PER_ROW
 from repro_torch.pmvc.plan_device import pack_units
-from repro_torch.sparse.bell import pad_x_blocks
+from repro_torch.sparse.bell import pack_bell, pad_x_blocks
 from repro_torch.sparse.formats import COO
 
 UNITS = 3
@@ -51,7 +63,8 @@ def _port(dp, xb, dtype=torch.float32):
     return bell_spmm(bt, torch.as_tensor(xb).to(dtype)[None]).numpy()
 
 
-@pytest.mark.parametrize("bm,bn", [(8, 8), (8, 16), (16, 16), (8, 128)])
+@pytest.mark.parametrize("bm,bn", [(8, 8), (8, 16), (16, 16), (8, 128),
+                                   (4, 4), (24, 24), (16, 12), (12, 16), (3, 5)])
 @pytest.mark.parametrize("b", [1, 8, 64])
 def test_plain_matches_oracle_per_unit(bm, bn, b):
     dp = _plan(random_coo, 0, bm, bn)
@@ -143,9 +156,11 @@ def test_wrapper_checks_its_inputs():
     dp = _plan(random_coo, 9, 8, 8, n=64, nnz=300)
     t = torch.as_tensor(dp.tiles)
     nrb = dp.num_row_blocks
-    with pytest.raises(ValueError, match="not in"):
-        bell_tiles(torch.zeros((UNITS, dp.t, 8, 12)), dp.tile_row, dp.tile_col,
+    with pytest.raises(ValueError, match="at least 1 x 1"):
+        bell_tiles(torch.zeros((UNITS, dp.t, 0, 8)), dp.tile_row, dp.tile_col,
                    dp.real_tiles, nrb)
+    # Any other shape is taken, as by the JAX package (simt on the card).
+    bell_tiles(torch.zeros((UNITS, dp.t, 8, 12)), dp.tile_row, dp.tile_col, dp.real_tiles, nrb)
     with pytest.raises(TypeError, match="float32 or float16"):
         bell_tiles(t.double(), dp.tile_row, dp.tile_col, dp.real_tiles, nrb)
     with pytest.raises(ValueError, match="tile_row of a real tile"):
@@ -225,6 +240,84 @@ def test_tile_set_carries_its_spans():
     (16, 16, 1, "stream"), (16, 16, 8, "stream"), (16, 16, 64, "stream"),  # the main path
     (8, 8, 3, "stream"), (32, 32, 17, "stream"), (8, 32, 64, "stream"),
     (8, 128, 8, "simt"), (64, 16, 8, "simt"), (128, 128, 1, "simt"), (128, 128, 64, "simt"),
+    # stream takes only what csrc/bell_spmm.cu instantiates: bm a multiple
+    # of 8 up to 32, bn in {8, 16, 32}; every other shape goes to simt.
+    (8, 8, 8, "stream"), (32, 32, 8, "stream"), (24, 16, 8, "stream"),
+    (16, 24, 8, "simt"), (12, 16, 8, "simt"), (64, 64, 8, "simt"), (4, 4, 8, "simt"),
+    (16, 12, 1, "simt"), (40, 8, 8, "simt"),
 ])
 def test_spmm_variant(dtype, bm, bn, b, variant):
     assert spmm_variant(dtype, bm, bn, b) == variant
+
+
+def test_spmm_variant_sends_stream_only_its_instantiations():
+    """Every shape up to 40 x 40: stream exactly where launch_stream has an
+    instantiation, whatever the type and batch width."""
+    for dtype in (torch.float32, torch.float16):
+        for bm in range(1, 41):
+            for bn in range(1, 41):
+                want = bm % 8 == 0 and bm <= 32 and bn in (8, 16, 32)
+                for b in (1, 8):
+                    assert (spmm_variant(dtype, bm, bn, b) == "stream") == want, (bm, bn)
+
+
+@pytest.mark.parametrize("bm,bn,b,fits", [
+    (16, 16, 8, True), (128, 128, 64, True), (16, 24, 8, True), (12, 12, 1, True),
+    (1024, 1, 1, True), (1025, 1, 1, False),  # outputs a block holds
+    (128, 192, 1, False), (96, 256, 4, False), (8, 2700, 1, True), (8, 2800, 1, False),
+])
+def test_simt_limit(bm, bn, b, fits):
+    """The simt kernel's shared memory (a float32 tile and its x block) and
+    outputs a block: the wrapper raises before a launch that would not fit,
+    naming the limit."""
+    msg = simt_limit(bm, bn, b)
+    assert (msg is None) == fits
+    if not fits:
+        assert "simt" in msg and ("outputs" in msg or "shared memory" in msg)
+
+
+# -- the single-shard entry points -------------------------------------------
+
+
+@pytest.mark.parametrize("bm,bn", [(8, 8), (16, 16), (8, 12)])
+def test_shard_entry_points_match_jax(bm, bn):
+    """``pack_bell`` → ``pack_inputs`` → ``spmm_shard`` / ``spmv_shard``
+    (and their ``*_ref``) on CPU tensors against the JAX package's
+    ``*_ref`` on the JAX package's own shards, each column against the
+    B = 1 call — the counterpart of tests/test_batched.py's kernel case,
+    whose Pallas side fails in interpret mode on this JAX."""
+    a = random_coo(192, 1500, seed=0)
+    owner = nezgt_partition(tile_counts(a, bm, bn), 3).assignment
+    bell = pack_bell(COO(a.shape, a.row, a.col, a.val), owner, 3, bm, bn)
+    ref = jx_pack_bell(a, owner, 3, bm, bn)
+    assert bell.lb_tiles == ref.lb_tiles
+    xs = np.random.default_rng(1).standard_normal((8, a.shape[1])).astype(np.float32)
+    for shard, jshard in zip(bell.shards, ref.shards, strict=True):
+        for f in ("tiles", "tile_row", "tile_col", "row_blocks"):
+            np.testing.assert_array_equal(getattr(shard, f), getattr(jshard, f))
+        assert shard.num_real == jshard.num_real
+        r = len(shard.row_blocks)
+        tiles, tr, tc, xb = pack_inputs(shard, xs, bn, device="cpu")
+        assert xb.shape[-1] == 8 and tiles.device.type == "cpu"
+        y_o = np.asarray(jx_spmm_shard_ref(*jx_pack_inputs(jshard, xs, bn), r))
+        y_k = spmm_shard(tiles, tr, tc, xb, r).numpy()
+        assert y_k.shape == (r, bm, 8)
+        np.testing.assert_allclose(y_k, y_o, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(spmm_shard_ref(tiles, tr, tc, xb, r).numpy(), y_o,
+                                   rtol=1e-5, atol=1e-5)
+        for i in range(8):
+            _, _, _, xb1 = pack_inputs(shard, xs[i], bn, device="cpu")
+            y1 = spmv_shard(tiles, tr, tc, xb1, r).numpy()
+            np.testing.assert_array_equal(y1, y_k[..., i])  # columns independent of B
+            y1_o = np.asarray(jx_spmv_shard_ref(*jx_pack_inputs(jshard, xs[i], bn), r))
+            np.testing.assert_allclose(y1, y1_o, rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(spmv_shard_ref(tiles, tr, tc, xb1, r).numpy(), y1_o,
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_pack_inputs_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = random_coo(64, 300, seed=2)
+    bell = pack_bell(COO(a.shape, a.row, a.col, a.val), np.zeros(8, np.int64), 1, 8, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pack_inputs(bell.shards[0], np.ones(64, np.float32), 8)

@@ -86,6 +86,24 @@ def test_spmv_matches_jax_and_reference(t2dal, exchange, via):
         assert _rel(y, y_ref) < 1e-6  # ~1e-7: float32 against the float64 oracle
 
 
+@pytest.mark.parametrize("block", [4, 24, (16, 12)], ids=["4", "24", "16x12"])
+@pytest.mark.parametrize("exchange", ["replicated", "selective", "overlap:2"])
+def test_block_shapes_off_the_kernel_grid_match_jax(t2dal, exchange, block):
+    """Tile shapes outside BLOCK_SIZES plan and run as in the JAX package
+    (on the card they go to the simt kernel)."""
+    j = jx.distribute(t2dal, topology=jx.Topology(*TOPO), combo="NL-HC", exchange=exchange,
+                      block=block)
+    p = pt.distribute(_pt_coo(t2dal), topology=pt.Topology(*TOPO), combo="NL-HC",
+                      exchange=exchange, block=block, device="cpu")
+    bm, bn = (block, block) if isinstance(block, int) else block
+    assert (p.device_plan.bm, p.device_plan.bn) == (bm, bn)
+    np.testing.assert_array_equal(p.device_plan.tiles, j.device_plan.tiles)
+    x = np.random.default_rng(2).standard_normal((3, t2dal.shape[1])).astype(np.float32)
+    y = p.spmv(x)
+    assert _rel(y, j.spmv(x)) < 1e-5
+    assert _rel(y, p.spmv(x, executor="reference")) < 1e-6
+
+
 def _solver_cases(n):
     rng = np.random.default_rng(7)
     seeds = (rng.random((3, n)) < 0.05).astype(np.float32)
