@@ -46,7 +46,28 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    time by solver, the device time (CUDA events around each lane step's
    spmv), the device's idle share, requests per second against the 64
    direct solves in sequence, latency, and peak device memory;
-6. **lm kernels** — the other two kernels on their own entry points at
+6. **plans** — the plan store, ``update`` and the linter on the main
+   path's sessions (nothing planned twice, a ``TemporaryDirectory`` for
+   the archives): each exchange saved (v2) and loaded lazily on the card,
+   its first spmv timed beside its planning time in ``[main]`` and its
+   B = 1 and B = 8 spmv bitwise the planned session's, likewise an eager
+   load and a v1 archive (replicated); ``distribute(cache_dir=...)``'s
+   miss, memo hit and disk hit, bitwise; a value-only delta of 12,000
+   existing entries and a structural one of 6,000 in-band inserts and
+   6,000 deletes, made from ``--seed``, patched (forced, with what the
+   patch-or-replan rule would decide printed) on every exchange, each
+   patched spmv bitwise a cold ``pack_units`` session on the same
+   assignment and within 1e-5 of the float64 oracle, and one forced
+   replan (replicated); a ``SparseServeEngine`` over a graph registered
+   by path (16 requests bitwise their direct solves), ``update_graph``
+   with lanes in flight (old lanes bitwise the old session, later
+   requests the new), and a warm pool of one session alternating two
+   path graphs, the evicted session collected and its device memory
+   released; ``verify("strict")`` on a loaded session,
+   ``verify("full")`` on a patched one and ``python -m
+   repro_torch.analysis`` over the directory, each without a finding.
+   Every ``bell_spmm`` launch of the phase must be ``stream``;
+7. **lm kernels** — the other two kernels on their own entry points at
    the full width of the repo's language-model configs: the MoE expert
    FFN of granite-moe-1b-a400m (``plan_groups`` → gather → three
    ``grouped_matmul`` calls, bf16 and f32), its causal prefill
@@ -56,7 +77,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    counter, set to 0 just before its path, must have risen on it, and
    so must the per-variant counts of the tensor-core variants (bf16) and
    of the register-blocked ones (f32), never those of ``simt``;
-7. **times** — each kernel's time per launch at its path's shapes
+8. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, the ``simt`` variant's time
    at the same shapes (the kernels of the previous slices, compared within
@@ -130,6 +151,10 @@ ATTN_EXTRA = ((True, 0, 256, 256, 128, 128, 64), (True, 32, 256, 256, 128, 128, 
               (False, 0, 256, 256, 128, 128, 128), (True, 16, 64, 192, 32, 64, 80),
               (True, 8, 128, 32, 32, 16, 80), (True, 8, 64, 64, 16, 16, 24),
               (True, 8, 256, 64, 64, 64, 80), (True, 4, 256, 64, 128, 64, 64))
+# The [plans] phase's deltas: 1 % of the main path's non-zeros given new
+# values, and half as many inserts within the band plus as many deletes.
+PLAN_VALUE_EDITS = 12_000
+PLAN_STRUCT_EDITS = 6_000
 # The [serve] phase: BENCH_serve.json's batch_slots and iters, 64 requests
 # from 4 tenants.
 SERVE_SLOTS = 8
@@ -475,12 +500,14 @@ def phase_main_path(device) -> dict:
         f"{dp.tiles.nbytes / 1e6:.1f} MB payload")
 
     out = {"launches": 0, "variant_launches": dict.fromkeys(bell_spmm.variant_launches, 0),
-           "sessions": {}, "spd_sessions": {}, "ref": ref_sess, "spd_ref": spd_ref}
+           "sessions": {}, "spd_sessions": {}, "plan_s": {}, "ref": ref_sess,
+           "spd_ref": spd_ref}
     for ex in EXCHANGES:
         bell_spmm.launches = 0
         bell_spmm.variant_launches = dict.fromkeys(bell_spmm.variant_launches, 0)
         t0 = time.perf_counter()
         sess = distribute(a, exchange=ex, **common)  # on the card by default
+        t_plan_a = time.perf_counter() - t0
         spd_sess = distribute(spd, exchange=ex, **common)
         t_plan = time.perf_counter() - t0
         for b, x in xs.items():
@@ -504,13 +531,15 @@ def phase_main_path(device) -> dict:
         check(launches > 0, f"{ex}: bell_spmm was never launched on the main path")
         check(by_variant["stream"] == launches and by_variant["simt"] == 0,
               f"{ex}: the main path did not run on the stream variant alone: {by_variant}")
-        log(f"[main] {ex}: planning {t_plan:.1f} s, spmv + power_iteration + pagerank + "
-            f"cg (host and device loops) ok; bell_spmm launches {launches} {by_variant}")
+        log(f"[main] {ex}: planning {t_plan:.1f} s (A alone {t_plan_a:.2f} s), spmv + "
+            f"power_iteration + pagerank + cg (host and device loops) ok; bell_spmm launches "
+            f"{launches} {by_variant}")
         out["launches"] += launches
         for v, c in by_variant.items():
             out["variant_launches"][v] += c
         out["sessions"][ex] = sess
         out["spd_sessions"][ex] = spd_sess
+        out["plan_s"][ex] = t_plan_a
     return out
 
 
@@ -762,7 +791,275 @@ def phase_serve(main: dict, card: dict, seed: int) -> dict:
     return out
 
 
-# -- phase 6: lm kernels -----------------------------------------------------
+# -- phase 6: plans ----------------------------------------------------------
+
+
+def plan_deltas(a, rng) -> tuple:
+    """The [plans] phase's two deltas on ``a``: PLAN_VALUE_EDITS existing
+    entries given new values, and PLAN_STRUCT_EDITS inserts within the
+    band plus as many deletes of existing entries."""
+    from repro_torch.sparse.delta import SparseDelta
+
+    n = a.shape[0]
+    pick = rng.choice(a.nnz, PLAN_VALUE_EDITS + PLAN_STRUCT_EDITS, replace=False)
+    val_idx, del_idx = pick[:PLAN_VALUE_EDITS], pick[PLAN_VALUE_EDITS:]
+    value = SparseDelta.upserts(a.shape, a.row[val_idx], a.col[val_idx],
+                                rng.standard_normal(val_idx.size).astype(np.float32))
+    half = int(np.abs(a.row.astype(np.int64) - a.col).max())
+    row = rng.integers(0, n, 4 * PLAN_STRUCT_EDITS)
+    col = row + rng.integers(-half, half + 1, row.size)
+    ok = (col >= 0) & (col < n)
+    row, col = row[ok], col[ok]
+    key = row * n + col
+    fresh = ~np.isin(key, a.row.astype(np.int64) * n + a.col)
+    _, first = np.unique(key, return_index=True)
+    ins = np.intersect1d(np.nonzero(fresh)[0], first)[:PLAN_STRUCT_EDITS]
+    check(ins.size == PLAN_STRUCT_EDITS, f"only {ins.size} free in-band coordinates")
+    structural = SparseDelta.merge(
+        a.shape, up_row=row[ins], up_col=col[ins],
+        up_val=rng.standard_normal(ins.size).astype(np.float32),
+        del_row=a.row[del_idx], del_col=a.col[del_idx])
+    return value, structural
+
+
+def timed(fn, *args, **kw):
+    """(result, seconds) of ``fn(*args, **kw)`` on the host clock, the
+    card drained before the clock stops."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_plans(main: dict, card: dict, seed: int, device) -> dict:
+    import gc
+    import tempfile
+    import weakref
+
+    from repro_torch.api import SparseSession, Topology, distribute, plancache
+    from repro_torch.api.exchange import resolve_exchange
+    from repro_torch.api.session import PATCH_DRIFT_LIMIT, PATCH_TOUCH_LIMIT
+    from repro_torch.kernels.spmv import bell_spmm
+    from repro_torch.pmvc.plan_device import pack_units
+    from repro_torch.serve import SparseServeEngine, Status
+
+    where = card["smi"]
+    cfg = SCALE_CONFIG
+    common = {"topology": Topology(*cfg["topology"]), "combo": cfg["combo"],
+              "block": cfg["block"], "seed": cfg["seed"]}
+    sessions = main["sessions"]
+    a = sessions["replicated"].matrix
+    n = a.shape[0]
+    rng = np.random.default_rng(seed + 2)
+    x1 = rng.standard_normal((1, n)).astype(np.float32)
+    x8 = rng.standard_normal((8, n)).astype(np.float32)
+    value_delta, struct_delta = plan_deltas(a, rng)
+
+    def same(s, ref, what):
+        for x in (x1, x8):
+            check(np.array_equal(s.spmv(x), ref.spmv(x)),
+                  f"{what}: spmv B={x.shape[0]} is not bitwise the reference session's")
+
+    bell_spmm.launches = 0
+    bell_spmm.variant_launches = dict.fromkeys(bell_spmm.variant_launches, 0)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        # save -> load, each exchange: v2, lazy, first spmv against planning.
+        paths = {}
+        for ex, sess in sessions.items():
+            path, t_save = timed(sess.save, os.path.join(d, f"plan-{ex}.npz"))
+            paths[ex] = path
+            loaded, t_meta = timed(plancache.load_session, path)
+            check(loaded.device == device and not loaded.is_materialized,
+                  f"{ex}: the lazy load is not a lazy card session")
+            _, t_first = timed(loaded.spmv, x1)
+            same(loaded, sess, f"{ex} loaded")
+            t_plan = main["plan_s"][ex]
+            log(f"[plans] {ex}: save v2 {os.path.getsize(path) / 1e6:.1f} MB in {t_save:.2f} s; "
+                f"lazy load: meta {t_meta * 1e3:.1f} ms, first spmv (materialize + hoist + "
+                f"launch) {t_first:.2f} s, together {t_meta + t_first:.2f} s against planning "
+                f"{t_plan:.2f} s ({t_plan / (t_meta + t_first):.1f}x); spmv B=1 and B=8 bitwise "
+                f"the planned session's [{where}]")
+        rep = sessions["replicated"]
+        eager, t_eager = timed(plancache.load_session, paths["replicated"], lazy=False)
+        check(eager.is_materialized, "lazy=False left a thunk")
+        same(eager, rep, "replicated eager load")
+        v1, t_v1save = timed(rep.save, os.path.join(d, "plan-replicated-v1.npz"),
+                               format_version=1)
+        v1s = plancache.load_session(v1)
+        _, t_v1first = timed(v1s.spmv, x1)
+        same(v1s, rep, "replicated v1 load")
+        log(f"[plans] replicated: eager load {t_eager:.2f} s; v1 archive "
+            f"{os.path.getsize(v1) / 1e6:.1f} MB saved in {t_v1save:.2f} s, lazy load to first "
+            f"spmv {t_v1first:.2f} s; both bitwise [{where}]")
+
+        # The cache layers in front of planning.
+        cache = os.path.join(d, "cache")
+        plancache.clear_memo()
+        miss, t_miss = timed(distribute, a, exchange="replicated", cache_dir=cache, **common)
+        check(len(os.listdir(cache)) == 1, "the miss wrote no archive")
+        hit, t_hit = timed(distribute, a, exchange="replicated", cache_dir=cache, **common)
+        check(hit.device_plan is miss.device_plan, "the memo hit is not the memoized plan")
+        plancache.clear_memo()
+        disk, t_disk = timed(distribute, a, exchange="replicated", cache_dir=cache, **common)
+        check(not disk.is_materialized, "the disk hit planned instead of loading")
+        _, t_disk_first = timed(disk.spmv, x1)
+        same(disk, miss, "replicated disk hit")
+        log(f"[plans] cache_dir: miss (plan + write) {t_miss:.2f} s, memo hit "
+            f"{t_hit * 1e3:.2f} ms, disk hit {t_disk * 1e3:.1f} ms + first spmv "
+            f"{t_disk_first:.2f} s, bitwise the miss's [{where}]")
+        del miss, hit, disk
+        plancache.clear_memo()
+
+        # update at full width, both deltas, every exchange.
+        patched_sel = None
+        for ex, sess in sessions.items():
+            for kind, delta in (("value", value_delta), ("structural", struct_delta)):
+                # Forced: the rule replans a delta that touches more than
+                # PATCH_TOUCH_LIMIT of the tiles, which the line reports.
+                new, t_patch = timed(sess.update, delta, force="patch")
+                r = new.update_report
+                check(r.action == "patched" and r.structural == (kind == "structural"),
+                      f"{ex} {kind}: {r}")
+                rule = ("replan" if r.touched_fraction > PATCH_TOUCH_LIMIT
+                        or r.t_model_patched > PATCH_DRIFT_LIMIT * r.t_model_baseline
+                        else "patch")
+                _, t_first = timed(new.spmv, x1)
+                mutated = new.matrix
+                dp = new.device_plan
+                cold_dp = pack_units(mutated, new.partition.elem_unit, dp.num_units, dp.bm,
+                                     dp.bn)
+                cold = SparseSession(mutated, new.topology, new.partition, cold_dp,
+                                     exchange=ex, selective=resolve_exchange(ex)(cold_dp),
+                                     executor="simulate", device=device)
+                same(new, cold, f"{ex} {kind} patch against the cold pack")
+                y = new.spmv(x8)
+                err = rel_err(y, new.spmv(x8, executor="reference"))
+                check(err < TOL_F32, f"{ex} {kind}: patched spmv off the oracle by {err:.2e}")
+                log(f"[plans] {ex}: {kind} delta ({delta.num_upserts} upserts, "
+                    f"{delta.num_deletes} deletes): {r.action} on the host in {t_patch:.2f} s "
+                    f"({r.touched_tiles}/{r.total_tiles} tiles touched, "
+                    f"{r.touched_fraction:.2%}; modeled t_iter {r.t_model_patched:.4e} s against "
+                    f"baseline {r.t_model_baseline:.4e} s; the unforced rule would {rule}), "
+                    f"first spmv {t_first:.2f} s; bitwise the cold pack, {err:.2e} off the "
+                    f"float64 oracle [{where}]")
+                if ex == "selective" and kind == "structural":
+                    patched_sel = new
+                del new, cold
+        replan, t_replan = timed(rep.update, struct_delta, force="replan")
+        check(replan.update_report.action == "replanned", f"{replan.update_report}")
+        err = rel_err(replan.spmv(x8), replan.spmv(x8, executor="reference"))
+        check(err < TOL_F32, f"replicated replan off the oracle by {err:.2e}")
+        log(f"[plans] replicated: forced replan of the structural delta {t_replan:.2f} s "
+            f"(against the patch above), {err:.2e} off the float64 oracle [{where}]")
+        del replan
+
+        # The engine over graphs registered by path.
+        def requests(count):
+            out = []
+            for i in range(count):
+                if i % 2:
+                    out.append(("spmv", {"x": rng.standard_normal(n).astype(np.float32)}))
+                else:
+                    seeds = (rng.random(n) < 1e-3).astype(np.float32)
+                    seeds[rng.integers(n)] = 1.0
+                    out.append(("pagerank", {"seeds": seeds}))
+            return out
+
+        eng = SparseServeEngine(batch_slots=SERVE_SLOTS, default_iters=SERVE_ITERS,
+                                max_queue=64)
+        eng.register_graph("g", paths["replicated"])
+        reqs = requests(16)
+        tickets = [eng.submit("g", s, payload=p) for s, p in reqs]
+        _, t_serve = timed(eng.run_until_drained)
+        for t, (s, p) in zip(tickets, reqs, strict=True):
+            check(t.status is Status.DONE and np.array_equal(t.result.x, direct_solve(rep, s, p)),
+                  f"path graph: ticket {t.tid} ({s}) is not bitwise its direct solve")
+        old = eng._session("g")
+        early_reqs, late_reqs = requests(8), requests(8)
+        early = [eng.submit("g", s, payload=p) for s, p in early_reqs]
+        eng.step()
+        eng.step()
+        report, t_upd = timed(eng.update_graph, "g", struct_delta)
+        new = eng._session("g")
+        check(new is not old and report.action == "patched", f"update_graph: {report}")
+        late = [eng.submit("g", s, payload=p) for s, p in late_reqs]
+        eng.run_until_drained()
+        for tickets_, reqs_, sess_, what in ((early, early_reqs, old, "old"),
+                                            (late, late_reqs, new, "new")):
+            for t, (s, p) in zip(tickets_, reqs_, strict=True):
+                check(t.status is Status.DONE
+                      and np.array_equal(t.result.x, direct_solve(sess_, s, p)),
+                      f"update_graph: ticket {t.tid} ({s}) is not bitwise the {what} session")
+        log(f"[plans] engine: graph registered by path, 16 requests in {t_serve:.2f} s (lazy "
+            f"hydration included), each bitwise its direct solve; update_graph with 8 in "
+            f"flight {t_upd:.2f} s ({report.action}), the 8 in flight bitwise the old session, "
+            f"the 8 after bitwise the new [{where}]")
+        del eng, old, new, tickets, early, late
+
+        # Warm pool of one: alternate two graphs, the evicted plan's tiles freed.
+        limits = plancache.set_memo_limit()
+        plancache.clear_memo()
+        plancache.set_memo_limit(max_sessions=1)
+        eng = SparseServeEngine(batch_slots=SERVE_SLOTS, default_iters=SERVE_ITERS,
+                                max_queue=64)
+        eng.register_graph("replicated", paths["replicated"])
+        eng.register_graph("selective", paths["selective"])
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        held, resident = {}, []
+        for i, name in enumerate(("replicated", "selective", "replicated", "selective")):
+            reqs = requests(2)
+            tickets = [eng.submit(name, s, payload=p) for s, p in reqs]
+            eng.run_until_drained()
+            for t, (s, p) in zip(tickets, reqs, strict=True):
+                check(t.status is Status.DONE
+                      and np.array_equal(t.result.x, direct_solve(sessions[name], s, p)),
+                      f"warm pool: {name} ticket {t.tid} ({s}) not bitwise its direct solve")
+            held[i] = weakref.ref(eng._session(name))
+            del tickets
+            gc.collect()
+            torch.cuda.synchronize()
+            resident.append((name, torch.cuda.memory_allocated() - base))
+            if i:
+                check(held[i - 1]() is None, f"switch {i}: the evicted session is still alive")
+        one = resident[0][1]
+        check(all(m < 1.5 * max(one, 1) for _, m in resident),
+              f"device memory grew across switches: {resident}")
+        log("[plans] warm pool of 1 session, two graphs by path alternated: device memory "
+            "above the phase's base after each switch and gc.collect(): "
+            + ", ".join(f"{nm} {m / 2**20:.0f} MiB" for nm, m in resident)
+            + f"; every evicted session collected [{where}]")
+        del eng
+        plancache.set_memo_limit(**limits)
+        plancache.clear_memo()
+
+        # The linter: strict on a loaded session, full on a patched one, the CLI.
+        rep_loaded = plancache.load_session(paths["replicated"])
+        strict, t_strict = timed(rep_loaded.verify, "strict")
+        full, t_full = timed(patched_sel.verify, "full")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        cli, t_cli = timed(
+            subprocess.run, [sys.executable, "-m", "repro_torch.analysis", d],
+            capture_output=True, text=True, env=env, timeout=600)
+        check(cli.returncode == 0, f"python -m repro_torch.analysis: {cli.stdout}{cli.stderr}")
+        summary = cli.stdout.strip().splitlines()[-1]
+        log(f"[plans] linter: verify('strict') on a loaded session {t_strict:.2f} s "
+            f"({len(strict.passes_run)} passes), verify('full') on a patched one {t_full:.2f} s "
+            f"({len(full.passes_run)} passes), python -m repro_torch.analysis {t_cli:.2f} s "
+            f"({summary}); no finding [{where}]")
+    torch.cuda.synchronize()
+    launches = bell_spmm.launches
+    by_variant = dict(bell_spmm.variant_launches)
+    check(launches > 0 and by_variant["stream"] == launches,
+          f"[plans] did not run on stream alone: {by_variant}")
+    log(f"[plans] phase {time.perf_counter() - t_phase:.1f} s; bell_spmm launches {launches} "
+        f"{by_variant}")
+    return {"launches": launches, "variant_launches": by_variant}
+
+
+# -- phase 7: lm kernels -----------------------------------------------------
 
 
 def moe_routing(rng, tokens: int, experts: int, top_k: int):
@@ -955,7 +1252,7 @@ def phase_lm_attention(device) -> dict:
             "runs": runs}
 
 
-# -- phase 7: times ----------------------------------------------------------
+# -- phase 8: times ----------------------------------------------------------
 
 
 def bsr_library_ms(bt, xb, reps):
@@ -1275,6 +1572,7 @@ def main() -> int:
     phase_kernel_attn(device)
     main_path = phase_main_path(device)
     serve = phase_serve(main_path, card, args.seed)
+    plans = phase_plans(main_path, card, args.seed, device)
     moe = phase_lm_moe(device)
     attn = phase_lm_attention(device)
     rows = phase_times(main_path, card, device)
@@ -1290,9 +1588,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bell_spmm.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:74",
-        "launches": main_path["launches"] + serve["launches"],
+        "launches": main_path["launches"] + serve["launches"] + plans["launches"],
         "variant": head["variant"],
-        "variant_launches": {v: c + serve["variant_launches"][v]
+        "variant_launches": {v: c + serve["variant_launches"][v] + plans["variant_launches"][v]
                              for v, c in main_path["variant_launches"].items()},
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"],

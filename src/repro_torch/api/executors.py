@@ -18,7 +18,9 @@ Built-ins:
   pinned against.
 
 The JAX package's ``"shard_map"`` (one unit per device) is not
-registered yet; asking for it raises ``KeyError``.
+registered yet; asking for it raises ``KeyError`` naming ROADMAP.md's
+item 6 — also at the first ``spmv`` of a plan archive whose meta names
+it, unless the load overrides the executor.
 """
 from __future__ import annotations
 
@@ -35,7 +37,9 @@ if TYPE_CHECKING:  # pragma: no cover - import cycle guard
 
 __all__ = ["EXECUTORS", "register_executor"]
 
-EXECUTORS = Registry("executor")
+EXECUTORS = Registry(
+    "executor", pending={"shard_map": "ROADMAP.md, Queue 1, item 6"}
+)
 register_executor = EXECUTORS.register
 
 SpmvFn = Callable[[np.ndarray], np.ndarray]

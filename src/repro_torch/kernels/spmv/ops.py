@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import warnings
 from typing import Tuple
 
 import numpy as np
@@ -45,7 +46,8 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.spmv.ref import bell_spmm_plain
 from repro_torch.sparse.bell import BellShard, pad_x_blocks
 
-__all__ = ["BLOCK_SIZES", "VARIANTS", "BellTiles", "bell_tiles", "bell_spmm", "pack_inputs",
+__all__ = ["BLOCK_SIZES", "VARIANTS", "BellTiles", "bell_tiles", "bell_spmm", "host_tensor",
+           "pack_inputs",
            "row_spans", "simt_limit", "spmm_shard", "spmm_shard_ref", "spmm_variant",
            "spmv_shard", "spmv_shard_ref"]
 
@@ -147,6 +149,19 @@ class BellTiles:
         return int(self.counts.sum())
 
 
+def host_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """``torch.as_tensor(a, device=device)`` for plan arrays. A plan
+    loaded lazily from its archive holds read-only memory maps: on the
+    CPU the tensor aliases the map, on the card the bytes are copied.
+    torch warns that it cannot write into such a map; nothing does, as
+    plan tensors are only ever read, so the warning is not shown."""
+    if getattr(a, "flags", None) is not None and not a.flags.writeable:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            return torch.as_tensor(a, device=device)
+    return torch.as_tensor(a, device=device)
+
+
 def bell_tiles(
     tiles: torch.Tensor,
     tile_row: np.ndarray,
@@ -204,7 +219,7 @@ def bell_tiles(
     np.cumsum(per_row, axis=1, out=row_ptr[:, 1:])
 
     def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=tiles.device)
+        return host_tensor(np.ascontiguousarray(a, dtype=np.int32), tiles.device)
 
     return BellTiles(
         tiles=tiles.contiguous(),

@@ -34,7 +34,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.spmv import bell_spmm, bell_tiles
+from repro_torch.kernels.spmv import bell_spmm, bell_tiles, host_tensor
 from repro_torch.pmvc.plan_device import (
     DevicePlan,
     ExchangePlan,
@@ -85,10 +85,10 @@ def hoist_tiles(tiles: np.ndarray, transform=None, *, device) -> torch.Tensor:
     to the host array on the way in (one transient host copy, never a
     persistent one)."""
     if transform is None:
-        return torch.as_tensor(tiles, device=device)
+        return host_tensor(tiles, device)
     dev = _DEVICE_UFUNC.get(transform)
     if dev is not None:
-        return dev(torch.as_tensor(tiles, device=device))
+        return dev(host_tensor(tiles, device))
     return torch.as_tensor(
         np.asarray(transform(np.asarray(tiles)), np.float32), device=device
     )
@@ -162,7 +162,7 @@ def _emulated_wave_exchange(owned, wave_send_idx, xb):
 
 
 def _index(a: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), device=device).long()
+    return host_tensor(np.asarray(a), device).long()
 
 
 def make_simulate_fn(

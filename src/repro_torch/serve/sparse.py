@@ -60,16 +60,25 @@ residual*; ``tol>0`` stops at the first iteration whose residual drops
 strictly below it (matching the host drivers). The ``converged`` flag
 follows the same rule.
 
-**Not ported yet** (ROADMAP.md, Queue 1): graphs registered by path and
-their lazy hydration wait for the plan cache (item 3);
-:meth:`SparseServeEngine.update_graph` and
-:meth:`SparseServeEngine.checkpoint_graph` wait for the plan cache and
-the runtime (items 3 and 4); the fault-tolerance wiring — a
-``fault_injector``, ``heartbeat``, ``recovery_dir`` or ``latency_probe``
-and :meth:`SparseServeEngine.mark_unit_silent` — waits for the runtime
-(item 4). Each raises ``NotImplementedError`` naming its item. The
-engine's fault points (:meth:`SparseServeEngine._fault_tick`) are
-counted already, in the JAX package's order.
+**Plan-store graphs and live updates.** A graph registered by the path
+of a saved plan hydrates lazily, per request, through the plan store's
+memo (:func:`repro_torch.api.plancache.hydrate_session`) on the
+engine's ``device``, so a cold graph costs nothing until it is asked
+for and an evicted one is re-read from disk.
+:meth:`SparseServeEngine.update_graph` applies a
+:class:`~repro_torch.sparse.delta.SparseDelta` to a registered graph
+with snapshot isolation: lanes in flight finish against the session
+they started on, and requests for the graph wait until those lanes
+drain, then run against the updated one.
+
+**Not ported yet** (ROADMAP.md, Queue 1, item 4): the fault-tolerance
+runtime — a ``fault_injector``, ``heartbeat``, ``recovery_dir`` or
+``latency_probe``, :meth:`SparseServeEngine.mark_unit_silent`, and
+:meth:`SparseServeEngine.checkpoint_graph`, which needs
+``recovery_dir``. Each raises ``NotImplementedError`` naming the item.
+The engine's fault points (:meth:`SparseServeEngine._fault_tick`) are
+counted already, in the JAX package's order, ``update_graph``'s two
+included.
 """
 from __future__ import annotations
 
@@ -78,11 +87,12 @@ import dataclasses
 import enum
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-from repro_torch.api.session import SparseSession
+from repro_torch.api.plancache import hydrate_session
+from repro_torch.api.session import SparseSession, UpdateReport
 from repro_torch.api.solvers import STEPPERS, BatchStepper, SolveResult
 from repro_torch.serve.metrics import ServeMetrics
 
@@ -99,7 +109,6 @@ __all__ = [
 _UNSET = object()
 
 # Where ROADMAP.md lists what this module leaves out.
-_PLAN_CACHE = "the plan cache (ROADMAP.md, Queue 1, item 3)"
 _RUNTIME = "the fault-tolerance runtime (ROADMAP.md, Queue 1, item 4)"
 
 
@@ -206,10 +215,14 @@ class Ticket:
 
 class _Lane:
     """One live stepper: fixed ``[slots, N]`` state for one
-    (graph, solver, config) key, with per-slot occupancy."""
+    (graph, solver, config) key, with per-slot occupancy. ``source`` is
+    the graph's registered source when the lane was built; once
+    :meth:`SparseServeEngine.update_graph` replaces it, the lane is
+    stale: it finishes what it holds and takes no new ticket."""
 
-    def __init__(self, stepper: BatchStepper):
+    def __init__(self, stepper: BatchStepper, source):
         self.stepper = stepper
+        self.source = source
         self.slots = stepper.slots
         self.tickets: List[Optional[Ticket]] = [None] * self.slots
         self.active = np.zeros(self.slots, dtype=bool)
@@ -257,6 +270,8 @@ class SparseServeEngine:
     1.0). ``default_iters`` / ``default_tol`` apply when a request
     doesn't override them (``default_tol=None``: no early exit).
     ``executor`` overrides the executor of registered sessions;
+    ``device`` is where graphs registered by path are hydrated (the card
+    when omitted; a registered session keeps its own device);
     ``clock`` is injectable (tests drive deadlines with a fake clock;
     production uses ``time.monotonic``).
 
@@ -268,8 +283,8 @@ class SparseServeEngine:
 
     ``fault_injector``, ``heartbeat``, ``recovery_dir`` and
     ``latency_probe`` are the JAX package's fault-tolerance wiring; they
-    are not ported yet, and giving any of them raises
-    ``NotImplementedError``.
+    are not ported yet (ROADMAP.md, Queue 1, item 4), and giving any of
+    them raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -282,6 +297,7 @@ class SparseServeEngine:
         default_iters: int = 50,
         default_tol: Optional[float] = None,
         executor: Optional[str] = None,
+        device=None,
         clock=time.monotonic,
         fault_injector=None,
         heartbeat=None,
@@ -313,9 +329,10 @@ class SparseServeEngine:
         self.default_iters = int(default_iters)
         self.default_tol = None if default_tol is None else float(default_tol)
         self.executor = executor
+        self.device = device
         self.clock = clock
         self.metrics = ServeMetrics()
-        self._graphs: Dict[str, SparseSession] = {}
+        self._graphs: Dict[str, Union[str, SparseSession]] = {}
         # Admission state: one FIFO deque per tenant (only tenants with
         # waiting work have an entry), normalized-service counters for
         # the deficit scheduler (each admission charges 1/weight; the
@@ -338,18 +355,19 @@ class SparseServeEngine:
 
     # -- registration ------------------------------------------------------
 
-    def register_graph(self, name: str, source: SparseSession) -> None:
+    def register_graph(
+        self, name: str, source: Union[str, SparseSession]
+    ) -> None:
         """Expose a graph to tenants. ``source`` is a live
-        :class:`~repro_torch.api.SparseSession`; a path to a saved plan
-        waits for the plan cache and raises ``NotImplementedError``."""
-        if isinstance(source, str):
-            raise NotImplementedError(
-                f"registering a graph by path needs {_PLAN_CACHE}, not ported yet; "
-                "register a SparseSession"
-            )
-        if not isinstance(source, SparseSession):
+        :class:`~repro_torch.api.SparseSession` or a path to a saved plan
+        (``.npz`` from :meth:`SparseSession.save`, written by either
+        package); paths hydrate lazily per request through the plan-store
+        memo on the engine's ``device``, so registering ten thousand
+        graphs costs nothing until they're asked for."""
+        if not isinstance(source, (str, SparseSession)):
             raise TypeError(
-                f"source must be a SparseSession, got {type(source).__name__}"
+                f"source must be a SparseSession or a plan path, got "
+                f"{type(source).__name__}"
             )
         with self._lock:
             self._graphs[name] = source
@@ -359,24 +377,52 @@ class SparseServeEngine:
 
     def _session(self, name: str) -> SparseSession:
         src = self._graphs[name]
+        if isinstance(src, str):
+            return hydrate_session(src, executor=self.executor, device=self.device)
         if self.executor is not None and src.executor != self.executor:
             return src.with_executor(self.executor)
         return src
 
-    # -- streaming updates, checkpoints, fault handling (not ported yet) ----
+    # -- streaming updates, checkpoints, fault handling ---------------------
 
-    def update_graph(self, name: str, delta, *, force=None):
-        """Apply a sparse delta to a registered graph: needs
-        ``SparseSession.update`` and the delta journal, not ported yet."""
-        raise NotImplementedError(
-            f"update_graph needs {_PLAN_CACHE} and {_RUNTIME}, not ported yet"
-        )
+    def update_graph(
+        self, name: str, delta, *, force: Optional[str] = None
+    ) -> UpdateReport:
+        """Apply ``delta`` to registered graph ``name`` in place.
+
+        Runs :meth:`SparseSession.update` (patch-or-replan), then swaps
+        the registered source to the mutated session. Lanes already
+        running keep their old session until they drain — snapshot
+        isolation, so an in-flight solve is never answered half against
+        each matrix — and requests for the graph are admitted to a lane
+        over the new session once the old lane has drained. Returns the
+        update's :class:`~repro_torch.api.session.UpdateReport`.
+
+        Fault points: one before the update is computed, one after it
+        but before the swap, as in the JAX package. Journaling the
+        delta against a ``recovery_dir`` waits for the runtime
+        (ROADMAP.md, Queue 1, item 4).
+        """
+        if name not in self._graphs:
+            known = ", ".join(sorted(self._graphs)) or "<none>"
+            raise KeyError(f"unknown graph {name!r}; registered: {known}")
+
+        def body():
+            sess = self._session(name)
+            self._fault_tick()  # kill point: before the update
+            new = sess.update(delta, force=force)
+            self._fault_tick()  # kill point: computed, nothing swapped yet
+            self._graphs[name] = new
+            return new.update_report
+
+        with self._lock:
+            return self._guard(body)
 
     def checkpoint_graph(self, name: str) -> int:
-        """Commit a graph's plan as a new generation: needs the
-        generation store, not ported yet."""
+        """Commit a graph's plan as a new generation: needs
+        ``recovery_dir``, which waits for the runtime."""
         raise NotImplementedError(
-            f"checkpoint_graph needs {_PLAN_CACHE} and {_RUNTIME}, not ported yet"
+            f"checkpoint_graph needs recovery_dir, {_RUNTIME}, not ported yet"
         )
 
     def mark_unit_silent(self, unit: int) -> None:
@@ -591,6 +637,15 @@ class SparseServeEngine:
             ticket = cand[i]
             key = ticket.lane_key
             lane = self._lanes.get(key)
+            source = self._graphs[ticket.graph]
+            if lane is not None and lane.source is not source:
+                # The graph was updated under this lane: the lane drains
+                # against the old session, then gives way to a new one.
+                if lane.occupied:
+                    i += 1
+                    continue
+                del self._lanes[key]
+                lane = None
             if lane is None:
                 try:
                     session = self._session(ticket.graph)
@@ -602,7 +657,7 @@ class SparseServeEngine:
                     cand.pop(i)
                     self._fail(ticket, err, now)
                     continue
-                lane = self._lanes[key] = _Lane(stepper)
+                lane = self._lanes[key] = _Lane(stepper, source)
             slot = lane.free_slot()
             if slot is None:
                 i += 1

@@ -34,6 +34,8 @@ __all__ = [
     "pad_x_blocks",
     "split_tiles_local_halo",
     "stack_ragged",
+    "ragged_from_stacked",
+    "repad_stacked",
     "x_block_owner",
 ]
 
@@ -76,6 +78,31 @@ def stack_ragged(
     out = np.zeros((u * t,) + flat.shape[1:], dtype=flat.dtype)
     out[unit * t + within] = flat
     return out.reshape((u, t) + flat.shape[1:])
+
+
+def ragged_from_stacked(stacked: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`stack_ragged`: drop the padding, returning the
+    unit-major concatenation of each unit's first ``counts[u]`` entries."""
+    counts = np.asarray(counts, dtype=np.int64)
+    mask = np.arange(stacked.shape[1], dtype=np.int64)[None, :] < counts[:, None]
+    return stacked[mask]
+
+
+def repad_stacked(
+    stacked: np.ndarray, counts: np.ndarray, t: int
+) -> np.ndarray:
+    """Re-pad a ``[U, T, ...]`` stacked-ragged array to a new capacity ``t``
+    with zeroed padding: row ``u`` keeps its first ``min(counts[u], t)``
+    entries in order; everything past that is zero.  The growth/shrink
+    primitive behind :func:`repro_torch.pmvc.plan_device.patch_device_plan`, which
+    re-pads untouched units' tile runs when a streaming delta changes the
+    global tile capacity."""
+    counts = np.asarray(counts, dtype=np.int64)
+    out = np.zeros((stacked.shape[0], t) + stacked.shape[2:], dtype=stacked.dtype)
+    t_copy = min(stacked.shape[1], t)
+    mask = np.arange(t_copy, dtype=np.int64)[None, :] < counts[:, None]
+    out[:, :t_copy][mask] = stacked[:, :t_copy][mask]
+    return out
 
 
 def pad_x_blocks(x: np.ndarray, num_col_blocks: int, bn: int) -> np.ndarray:

@@ -1,8 +1,10 @@
 """The port on the card: each CUDA kernel (Block-ELL SpMM, grouped matmul,
 flash attention) against its plain version, two launches bitwise equal
 and the launch counter rising, a small session end to end against the
-float64 oracle, the single-shard entry points, and the serving engine
-bitwise its direct solves.
+float64 oracle, the single-shard entry points, the serving engine
+bitwise its direct solves, and the plan store: save → load bitwise with
+the first spmv of a lazy load on ``stream``, a patched spmv bitwise the
+cold pack, and a load with no device given taking the card.
 
 Marked ``gpu``; each test asks a fixture for the card and skips without
 one. The file imports no JAX, so it also runs where only PyTorch is
@@ -14,7 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import STEPPERS, Topology, distribute
+from repro_torch.api import (
+    STEPPERS,
+    SparseDelta,
+    SparseSession,
+    Topology,
+    distribute,
+    load_session,
+)
+from repro_torch.api.exchange import resolve_exchange
 from repro_torch.core.nezgt import nezgt_partition
 from repro_torch.kernels.attn import attention_plain, attention_variant, flash_attention, mha
 from repro_torch.kernels.gmm import gmm_plain, gmm_variant, grouped_matmul, plan_groups
@@ -28,6 +38,7 @@ from repro_torch.kernels.spmv import (
     spmm_variant,
     spmv_shard,
 )
+from repro_torch.pmvc.plan_device import pack_units
 from repro_torch.serve import SparseServeEngine, Status
 from repro_torch.sparse.bell import pack_bell, tile_counts
 from repro_torch.sparse.formats import COO
@@ -221,6 +232,70 @@ def test_session_on_the_card_matches_the_oracle(cuda):
         host = sess.solve("pagerank", iters=10)
         dev = sess.solve("pagerank", iters=10, device_loop=True)
         np.testing.assert_allclose(dev.x, host.x, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("exchange", ["replicated", "selective", "overlap:2"])
+@pytest.mark.parametrize("fmt", [1, 2])
+def test_save_load_is_bitwise_on_the_card(cuda, tmp_path, exchange, fmt):
+    """A lazily loaded session's first spmv materializes the archive,
+    hoists the tiles and launches ``stream``; B = 1 and B = 8 are bitwise
+    the saved session's."""
+    if fmt == 1 and exchange == "overlap:2":
+        exchange = "overlap"  # v1 predates multi-wave plans
+    a = banded_coo(3000, 40000, seed=1)
+    x = np.random.default_rng(1).standard_normal((8, 3000)).astype(np.float32)
+    sess = distribute(a, topology=Topology(2, 2), combo="NL-HC", exchange=exchange)
+    path = sess.save(str(tmp_path / "plan.npz"), format_version=fmt)
+    loaded = load_session(path)
+    assert loaded.device.type == "cuda" and not loaded.is_materialized
+    before = dict(bell_spmm.variant_launches)
+    y1 = loaded.spmv(x[:1])
+    assert bell_spmm.variant_launches["stream"] > before["stream"]
+    assert bell_spmm.variant_launches["simt"] == before["simt"]
+    assert np.array_equal(y1, sess.spmv(x[:1]))
+    assert np.array_equal(loaded.spmv(x), sess.spmv(x))
+
+
+@pytest.mark.parametrize("exchange", ["replicated", "selective", "overlap:2"])
+def test_patched_spmv_is_the_cold_pack_on_the_card(cuda, exchange):
+    a = banded_coo(3000, 40000, seed=2)
+    rng = np.random.default_rng(2)
+    sess = distribute(a, topology=Topology(2, 2), combo="NL-HC", exchange=exchange)
+    band = np.abs(a.row - a.col) <= 4
+    cand = np.nonzero(band)[0]
+    dele = rng.choice(cand, 300, replace=False)
+    r = rng.integers(0, 3000, 600).astype(np.int32)
+    c = np.clip(r + rng.integers(-4, 5, 600), 0, 2999).astype(np.int32)
+    key = r.astype(np.int64) * 3000 + c
+    fresh = ~np.isin(key, a.row.astype(np.int64) * 3000 + a.col)
+    _, first = np.unique(key, return_index=True)
+    pick = np.intersect1d(np.nonzero(fresh)[0], first)[:300]
+    delta = SparseDelta.merge(a.shape, up_row=r[pick], up_col=c[pick],
+                              up_val=rng.standard_normal(pick.size).astype(np.float32),
+                              del_row=a.row[dele], del_col=a.col[dele])
+    patched = sess.update(delta, force="patch")
+    assert patched.device.type == "cuda" and patched.update_report.structural
+    mutated = delta.apply(a)
+    dp = patched.device_plan
+    cold_dp = pack_units(mutated, patched.partition.elem_unit, dp.num_units, dp.bm, dp.bn)
+    cold = SparseSession(mutated, patched.topology, patched.partition, cold_dp,
+                         exchange=exchange, selective=resolve_exchange(exchange)(cold_dp),
+                         executor="simulate", device=cuda)
+    x = rng.standard_normal((8, 3000)).astype(np.float32)
+    y = patched.spmv(x)
+    assert np.array_equal(y, cold.spmv(x))
+    y_ref = patched.spmv(x, executor="reference")
+    assert np.abs(y - y_ref).max() / np.abs(y_ref).max() < 1e-5
+    patched.verify("full")
+
+
+def test_load_without_a_device_takes_the_card_or_raises(cuda, tmp_path, monkeypatch):
+    sess = distribute(banded_coo(500, 4000, seed=3), topology=Topology(2, 1))
+    path = sess.save(str(tmp_path / "plan.npz"))
+    assert load_session(path).device.type == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_session(path)
 
 
 # The reference tests' tolerances (tests/test_kernels_gmm.py and

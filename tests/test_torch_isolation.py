@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` loads neither JAX nor any module
-of the JAX package, its entry points run on the card unless the caller
-asks for the CPU, and what this slice leaves out says so."""
+of the JAX package, its entry points — the plan store's included — run
+on the card unless the caller asks for the CPU, and what the port still
+leaves out says so."""
 import ast
 import os
 import subprocess
@@ -18,8 +19,11 @@ from repro_torch.api import (
     PARTITIONERS,
     SOLVERS,
     STEPPERS,
+    SparseSession,
     Topology,
     distribute,
+    hydrate_session,
+    load_session,
     session_from_numpy,
 )
 from repro_torch.kernels.spmv import bell_spmm, bell_tiles
@@ -43,6 +47,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         import repro_torch.kernels.gmm, repro_torch.kernels.attn
         import repro_torch.kernels.build, repro_torch.pmvc.dist
         import repro_torch.serve, repro_torch.serve.driver, repro_torch.serve.sparse
+        import repro_torch.api.plancache, repro_torch.sparse.delta
+        import repro_torch.analysis, repro_torch.analysis.__main__
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "jaxlib", "repro")
                      or m.startswith(("jax.", "jaxlib.", "repro.")))
@@ -125,34 +131,58 @@ def test_slice_surface():
     assert set(STEPPERS.names()) == {"pagerank", "jacobi", "spmv", "cg"}
 
 
-def test_unported_parts_say_so():
+def test_unported_parts_say_so(tmp_path):
+    """The JAX package's ``shard_map`` executor is not ported: asking for
+    it, directly or through an archive whose meta names it, raises the
+    registry's ``KeyError`` naming ROADMAP item 6 — nothing substitutes
+    ``simulate``."""
     a = random_coo(64, 300, seed=1)
     topo = Topology(2, 1)
-    with pytest.raises(NotImplementedError, match="plan cache"):
-        distribute(a, topology=topo, device="cpu", cache_dir="plans")
-    with pytest.raises(NotImplementedError, match="linter"):
-        distribute(a, topology=topo, device="cpu", validate="strict")
     sess = distribute(a, topology=topo, device="cpu")
-    with pytest.raises(KeyError, match="unknown executor 'shard_map'"):
+    with pytest.raises(KeyError, match="unknown executor 'shard_map'.*item 6"):
         sess.spmv(np.ones(64, np.float32), executor="shard_map")
+    with pytest.raises(KeyError, match="item 6"):
+        sess.with_executor("shard_map")
+    path = distribute(a, topology=topo, device="cpu", executor="shard_map").save(
+        str(tmp_path / "plan.npz"))
+    loaded = SparseSession.load(path, device="cpu")
+    assert loaded.executor == "shard_map"
+    with pytest.raises(KeyError, match="item 6"):
+        loaded.spmv(np.ones(64, np.float32))
 
 
-def test_unported_serving_parts_say_so():
-    """What the serving slice leaves out raises, naming its ROADMAP item."""
+def test_unported_serving_parts_say_so(tmp_path):
+    """What the serving path still leaves out raises, naming ROADMAP item
+    4: the fault-tolerance wiring and ``checkpoint_graph``, which needs
+    ``recovery_dir``. Graphs by path and ``update_graph`` are ported."""
     sess = distribute(random_coo(64, 300, seed=2), topology=Topology(2, 1), device="cpu")
     for kw in ({"fault_injector": object()}, {"heartbeat": object()},
                {"recovery_dir": "recovery"}, {"latency_probe": dict}):
         with pytest.raises(NotImplementedError, match="item 4"):
             SparseServeEngine(**kw)
-    eng = SparseServeEngine()
-    with pytest.raises(NotImplementedError, match="plan cache.*item 3"):
-        eng.register_graph("g", "plans/g.npz")
+    eng = SparseServeEngine(device="cpu")
     eng.register_graph("g", sess)
-    with pytest.raises(NotImplementedError, match="item 3.*item 4"):
-        eng.update_graph("g", None)
-    with pytest.raises(NotImplementedError, match="item 3.*item 4"):
+    eng.register_graph("p", sess.save(str(tmp_path / "p.npz")))
+    assert eng.graphs() == ["g", "p"]
+    with pytest.raises(NotImplementedError, match="recovery_dir.*item 4"):
         eng.checkpoint_graph("g")
     with pytest.raises(NotImplementedError, match="item 4"):
         eng.mark_unit_silent(0)
-    with pytest.raises(TypeError, match="SparseSession"):
+    with pytest.raises(TypeError, match="SparseSession or a plan path"):
         eng.register_graph("h", object())
+
+
+def test_plan_store_without_device_raises(monkeypatch, tmp_path):
+    """Loading, hydrating or cache-planning with no device given and no
+    card present raises before any archive is read or plan made."""
+    sess = distribute(random_coo(64, 300, seed=3), topology=Topology(2, 1), device="cpu")
+    path = sess.save(str(tmp_path / "plan.npz"))
+    _no_card(monkeypatch)
+    for call in (lambda: load_session(path), lambda: SparseSession.load(path),
+                 lambda: hydrate_session(path),
+                 lambda: distribute(sess.matrix, topology=Topology(2, 1),
+                                    cache_dir=str(tmp_path / "c"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not os.path.exists(tmp_path / "c")
+    assert load_session(path, device="cpu").device == torch.device("cpu")

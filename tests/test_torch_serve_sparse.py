@@ -1,12 +1,14 @@
 """Serving tier for :mod:`repro_torch.serve.sparse`, on CPU tensors.
 
-The case-for-case port of ``tests/test_serve_sparse.py`` (less its three
-plan-store hydration cases, which wait for the plan cache): serving
+The case-for-case port of ``tests/test_serve_sparse.py``: serving
 through the engine changes *scheduling*, never *results* — every
 registered batch stepper is pinned bitwise against direct batched-of-1
 ``SparseSession.solve`` calls within the port, under mixed lanes,
 continuous slot refill, tol early-stops, overload and deadline churn,
-plus the admission-control contract.
+plus the admission-control contract and graphs hydrated from saved
+plans. ``update_graph`` is held to snapshot isolation: lanes in flight
+finish bitwise against the old session, later requests bitwise against
+the updated one.
 
 Then the cross-package cases: the same graphs, built from the same
 numpy COO in both packages, and the same submissions under one
@@ -19,11 +21,13 @@ reference's kernel-vs-oracle tolerance).
 import numpy as np
 import pytest
 
+import os
+
 import repro.api as jx_api
 import repro.serve as jx_serve
 import repro_torch.serve as SERVE
 from repro.sparse.formats import COO as JxCOO
-from repro_torch.api import STEPPERS, Topology, distribute
+from repro_torch.api import STEPPERS, SparseDelta, Topology, distribute, plancache, set_memo_limit
 from repro_torch.serve import (
     QueueFullError,
     SparseServeEngine,
@@ -340,6 +344,107 @@ def test_run_until_drained_guard(engine):
 def test_idle_step_is_noop(engine):
     assert engine.step() is False
     assert engine.metrics.ticks == 0
+
+
+# ---------------------------------------------------------------------------
+# Plan-store hydration + warm pool
+
+
+def test_path_registration_hydrates_lazily(tmp_path, sessions):
+    sess = sessions["g1"]
+    path = os.path.join(tmp_path, "g1.npz")
+    sess.save(path)
+    plancache.clear_memo()
+    eng = SparseServeEngine(batch_slots=2, max_queue=8, default_iters=4, device="cpu")
+    eng.register_graph("cold", str(path))
+    assert len(plancache._MEMO) == 0  # registration alone hydrates nothing
+    rng = np.random.default_rng(15)
+    seeds = rng.random(N).astype(np.float32)
+    t = eng.submit("cold", "pagerank", payload={"seeds": seeds})
+    eng.run_until_drained()
+    assert t.status is Status.DONE
+    assert "file:" + os.path.abspath(path) + "|cpu" in plancache._MEMO
+    ref = sess.solve("pagerank", seeds=seeds[None], iters=4)
+    assert np.array_equal(t.result.x, ref.x[0])
+
+
+def test_memo_eviction_then_rehydration(tmp_path, sessions):
+    """A graph evicted from the warm pool (set_memo_limit) re-hydrates
+    transparently on its next request, with identical results."""
+    path = os.path.join(tmp_path, "g2.npz")
+    sessions["g2"].save(path)
+    plancache.clear_memo()
+    limits = set_memo_limit()  # read current
+    try:
+        eng = SparseServeEngine(batch_slots=2, max_queue=8, default_iters=4, device="cpu")
+        eng.register_graph("g", str(path))
+        rng = np.random.default_rng(16)
+        seeds = rng.random(N).astype(np.float32)
+        t1 = eng.submit("g", "pagerank", payload={"seeds": seeds})
+        eng.run_until_drained()
+        set_memo_limit(max_sessions=0)  # evict everything (cold pool)
+        assert len(plancache._MEMO) == 0
+        set_memo_limit(max_sessions=4)
+        t2 = eng.submit("g", "pagerank", payload={"seeds": seeds})
+        eng.run_until_drained()
+        assert t1.status is Status.DONE and t2.status is Status.DONE
+        assert np.array_equal(t1.result.x, t2.result.x)
+    finally:
+        set_memo_limit(**limits)
+
+
+def test_hydrate_session_shares_canonical_session(tmp_path, sessions):
+    path = os.path.join(tmp_path, "g1.npz")
+    sessions["g1"].save(path)
+    plancache.clear_memo()
+    h1 = plancache.hydrate_session(str(path), device="cpu")
+    h2 = plancache.hydrate_session(str(path), device="cpu")
+    assert h1 is h2
+
+
+@pytest.mark.parametrize("by_path", [False, True])
+def test_update_graph_snapshot_isolation(tmp_path, sessions, by_path):
+    """Lanes in flight when ``update_graph`` swaps the graph finish
+    bitwise against the session they started on; requests for the same
+    lane key wait until that lane drains, then run bitwise against the
+    updated session, whichever way the graph was registered."""
+    old = sessions["g1"]
+    eng = SparseServeEngine(batch_slots=4, max_queue=32, default_iters=6, device="cpu")
+    if by_path:
+        path = old.save(os.path.join(tmp_path, "g1.npz"))
+        plancache.clear_memo()
+        eng.register_graph("g1", path)
+    else:
+        eng.register_graph("g1", old)
+    rng = np.random.default_rng(19)
+    seeds = [rng.random(N).astype(np.float32) for _ in range(7)]
+    early = [eng.submit("g1", "pagerank", payload={"seeds": s}) for s in seeds[:4]]
+    eng.step()
+    eng.step()
+    a = old.matrix
+    keep = np.nonzero(a.row != a.col)[0]  # the dominant diagonal stays
+    delta = SparseDelta.merge(
+        a.shape, up_row=a.row[keep[:5]], up_col=a.col[keep[:5]],
+        up_val=np.full(5, 3.0, np.float32), del_row=a.row[keep[5:9]],
+        del_col=a.col[keep[5:9]],
+    )
+    points = eng._fault_steps
+    report = eng.update_graph("g1", delta)
+    assert eng._fault_steps == points + 2  # its two fault points
+    new = eng._graphs["g1"]
+    assert new is not old and report is new.update_report
+    assert report.action == "patched" and report.structural
+    late = [eng.submit("g1", "pagerank", payload={"seeds": s}) for s in seeds[4:]]
+    eng.run_until_drained()
+    for t, s in zip(early, seeds[:4]):
+        assert t.status is Status.DONE
+        assert np.array_equal(t.result.x, old.solve("pagerank", seeds=s[None], iters=6).x[0])
+    for t, s in zip(late, seeds[4:]):
+        assert t.status is Status.DONE
+        assert t.t_start >= max(e.t_finish for e in early)
+        assert np.array_equal(t.result.x, new.solve("pagerank", seeds=s[None], iters=6).x[0])
+    with pytest.raises(KeyError, match="unknown graph"):
+        eng.update_graph("nope", delta)
 
 
 # ---------------------------------------------------------------------------
