@@ -67,7 +67,33 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``verify("full")`` on a patched one and ``python -m
    repro_torch.analysis`` over the directory, each without a finding.
    Every ``bell_spmm`` launch of the phase must be ``stream``;
-7. **lm kernels** — the other two kernels on their own entry points at
+7. **faults** — the fault-tolerance runtime on the replicated and
+   selective sessions (overlap:2's update replans, at every replay): per
+   exchange an engine under a ``recovery_dir`` in a temporary directory
+   checkpoints both graphs, journals one ``update_graph`` of the
+   ``[plans]`` value delta and serves 32 requests of the ``[serve]``
+   mix; then, on engines over the updated graphs, a ``FaultInjector``
+   kill at a mid-tick and at a post-refill point, a heartbeat death
+   (``mark_unit_silent``), a straggler demotion through
+   ``latency_probe``, and a kill between the archive write and the
+   marker commit of a second ``checkpoint_graph``: every run bitwise the
+   uninterrupted one with every ticket terminal once, the sessions from
+   before a recovery collected; it prints each recovery's seconds by
+   part (the last good generation's load, the journal replay, the remap
+   round trip, the steppers' rebuild), a rebuilt session's first spmv,
+   ``checkpoint_graph`` seconds, requests/s with and without the fault
+   and the device memory allocated after recovery. Every ``bell_spmm``
+   launch must be ``stream``;
+8. **dist** — the ``shard_map`` executor on an NCCL process group of one
+   rank (a file store in a temporary directory), all 16 units stacked on
+   it, on the three sessions at B = 1 / 8 / 64: within 1e-5 of the
+   float64 oracle, its difference from ``simulate`` and whether it is
+   bitwise, whether column b is bitwise the B = 1 spmv (printed, not
+   checked), the recorded schedule equal to ``golden_signature``, every
+   ``bell_spmm`` launch ``stream``, and the device time by CUDA events
+   beside ``simulate``'s. The cross-card traffic of 4 ranks stays
+   unverified on one card;
+9. **lm kernels** — the other two kernels on their own entry points at
    the full width of the repo's language-model configs: the MoE expert
    FFN of granite-moe-1b-a400m (``plan_groups`` → gather → three
    ``grouped_matmul`` calls, bf16 and f32), its causal prefill
@@ -77,7 +103,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    counter, set to 0 just before its path, must have risen on it, and
    so must the per-variant counts of the tensor-core variants (bf16) and
    of the register-blocked ones (f32), never those of ``simt``;
-8. **times** — each kernel's time per launch at its path's shapes
+10. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, the ``simt`` variant's time
    at the same shapes (the kernels of the previous slices, compared within
@@ -161,6 +187,11 @@ SERVE_SLOTS = 8
 SERVE_ITERS = 20
 SERVE_REQUESTS = 64
 SERVE_TENANTS = 4
+# The [faults] phase: 32 requests of the [serve] mix on two exchanges. On
+# overlap:2 the [plans] value delta touches 35 % of the tiles and the rule
+# replans (8 s), again at every journal replay.
+FAULT_REQUESTS = 32
+FAULT_EXCHANGES = ("replicated", "selective")
 # bf16 attention on the [lm attn] path: two bf16 ulps of the result plus a
 # floor, elementwise, against the plain version with the kernel's tiles.
 ATTN_BF16_REL, ATTN_BF16_ABS = 2.0**-6, 2e-3
@@ -587,13 +618,13 @@ class DeviceClock:
         return ms, wall_ms
 
 
-def serve_requests(rng, n: int) -> list:
-    """SERVE_REQUESTS requests from SERVE_TENANTS tenants, a quarter each of
+def serve_requests(rng, n: int, count: int = SERVE_REQUESTS) -> list:
+    """``count`` requests from SERVE_TENANTS tenants, a quarter each of
     pagerank with sparse seeds and spmv on ``a``, and jacobi and cg with
     random right-hand sides on ``spd``: (graph, solver, payload, tenant)."""
     kinds = (("a", "pagerank"), ("a", "spmv"), ("spd", "jacobi"), ("spd", "cg"))
     out = []
-    for i in range(SERVE_REQUESTS):
+    for i in range(count):
         graph, solver = kinds[i % len(kinds)]
         if solver == "pagerank":
             seeds = (rng.random(n) < 1e-3).astype(np.float32)
@@ -1056,10 +1087,280 @@ def phase_plans(main: dict, card: dict, seed: int, device) -> dict:
           f"[plans] did not run on stream alone: {by_variant}")
     log(f"[plans] phase {time.perf_counter() - t_phase:.1f} s; bell_spmm launches {launches} "
         f"{by_variant}")
+    return {"launches": launches, "variant_launches": by_variant, "value_delta": value_delta}
+
+
+# -- phase 7: faults ---------------------------------------------------------
+
+
+def phase_faults(main: dict, plans: dict, card: dict, seed: int) -> dict:
+    import gc
+    import tempfile
+    import weakref
+
+    from repro_torch.api import plancache
+    from repro_torch.kernels.spmv import bell_spmm
+    from repro_torch.runtime import FaultInjector, Heartbeat
+    from repro_torch.serve import SparseServeEngine, Status
+
+    where = card["smi"]
+    units = main["sessions"]["replicated"].topology.units
+    n = main["ref"].matrix.shape[0]
+    requests = serve_requests(np.random.default_rng(seed + 3), n, FAULT_REQUESTS)
+    x1 = np.random.default_rng(seed + 4).standard_normal((1, n)).astype(np.float32)
+
+    def engine(graphs, d, **kw):
+        eng = SparseServeEngine(batch_slots=SERVE_SLOTS, default_iters=SERVE_ITERS,
+                                max_queue=64, recovery_dir=d, **kw)
+        for name, sess in graphs.items():
+            eng.register_graph(name, sess)
+        return eng
+
+    def serve(eng, before_tick=None):
+        """The requests through ``eng``, ticked until drained: the tickets,
+        the fault counter before each tick, the wall seconds."""
+        tickets = [eng.submit(g, solver, payload=p, tenant=t) for g, solver, p, t in requests]
+        starts = []
+        t0 = time.perf_counter()
+        while eng.pending():
+            check(len(starts) < 10_000, "[faults] the engine did not drain")
+            if before_tick is not None:
+                before_tick(len(starts))
+            starts.append(eng._fault_steps)
+            eng.step()
+        torch.cuda.synchronize()
+        return tickets, starts, time.perf_counter() - t0
+
+    def resident(eng) -> float:
+        """Device MiB allocated with ``eng`` alive, after a collection."""
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() / 2**20
+
+    bell_spmm.launches = 0
+    bell_spmm.variant_launches = dict.fromkeys(bell_spmm.variant_launches, 0)
+    t_phase = time.perf_counter()
+    for ex in FAULT_EXCHANGES:
+        a0, spd = main["sessions"][ex], main["spd_sessions"][ex]
+        with tempfile.TemporaryDirectory() as d:
+            # Each engine gets sessions of its own (shared host plans, cold
+            # closure caches), so what a recovery leaves behind can be seen.
+            eng = engine({"a": a0._derive(), "spd": spd._derive()}, d)
+            _, t_ckpt_a = timed(eng.checkpoint_graph, "a")
+            _, t_ckpt_spd = timed(eng.checkpoint_graph, "spd")
+            report, t_upd = timed(eng.update_graph, "a", plans["value_delta"])
+            base, starts, wall0 = serve(eng)
+            check(all(t.status is Status.DONE for t in base), f"[faults] {ex}: uninterrupted run")
+            mib0 = resident(eng)
+            updated = eng._graphs["a"]._derive()  # the updated plan, its closures cold
+            y_updated = updated._derive().spmv(x1)
+            off = starts[0]  # the checkpoints' and the update's fault points
+            del eng
+            log(f"[faults] {ex}: checkpoint_graph a {t_ckpt_a:.2f} s, spd {t_ckpt_spd:.2f} s; "
+                f"update_graph of the [plans] value delta {t_upd:.2f} s ({report.action}, "
+                f"journaled); {FAULT_REQUESTS} requests uninterrupted in {wall0:.2f} s "
+                f"({FAULT_REQUESTS / wall0:.1f} requests/s, {len(starts)} ticks), "
+                f"{mib0:.0f} MiB allocated [{where}]")
+
+            def fault_run(what, collected=True, before=None, tick=None, **kw):
+                """Serve the requests on a fresh engine over the updated
+                graphs with ``kw``'s fault wiring (``before(eng)`` first,
+                ``tick(eng, i)`` before tick i); every result bitwise the
+                uninterrupted run's, every ticket terminal once, and
+                (``collected``: a recovery rebuilt its lanes) the sessions
+                it started with collected."""
+                graphs = {"a": updated._derive(), "spd": spd._derive()}
+                old = [weakref.ref(g) for g in graphs.values()]
+                eng = engine(graphs, d, **kw)
+                del graphs
+                if before is not None:
+                    before(eng)
+                got, _, wall = serve(eng, tick and (lambda i: tick(eng, i)))
+                for t0, t1 in zip(base, got, strict=True):
+                    check(t1.status is Status.DONE and t0.tid == t1.tid
+                          and np.array_equal(t0.result.x, t1.result.x)
+                          and t0.result.residuals == t1.result.residuals,
+                          f"[faults] {ex} {what}: ticket {t1.tid} is not bitwise the "
+                          f"uninterrupted run's ({t1.status}, {t1.error})")
+                check(eng.metrics.completed == FAULT_REQUESTS and eng.recoveries >= 1,
+                      f"[faults] {ex} {what}: completed {eng.metrics.completed}, "
+                      f"recoveries {eng.recoveries}")
+                mib = resident(eng)
+                check(not collected or (all(r() is None for r in old)
+                                        and mib < 1.25 * mib0 + 64),
+                      f"[faults] {ex} {what}: the sessions before the recovery are still "
+                      f"alive or resident memory grew ({mib:.0f} MiB against {mib0:.0f})")
+                parts = ", ".join(
+                    f"unit {r['unit']}: {r['total_s']:.2f} s (load {r['load_s']:.2f}, replay "
+                    f"{r['replay_s']:.2f}, remap {r['remap_s']:.2f}, rebind {r['rebind_s']:.2f})"
+                    for r in eng.recovery_log)
+                log(f"[faults] {ex} {what}: bitwise the uninterrupted run, {eng.recoveries} "
+                    f"recover{'y' if eng.recoveries == 1 else 'ies'} [{parts}]; "
+                    f"{FAULT_REQUESTS / wall:.1f} requests/s with the fault, {mib:.0f} MiB "
+                    f"allocated after it"
+                    + (", every session before it collected" if collected else "")
+                    + f" [{where}]")
+                return eng
+
+            # Kills at a mid-tick point (after the second lane's step of tick
+            # 3) and at a post-refill point (tick 8); the rerun of the killed
+            # tick passes its points again, which shifts the later ones.
+            mid = starts[3] - off + 2
+            check(starts[4] - starts[3] >= 3, f"[faults] {ex}: tick 3 ran too few lanes")
+            post = starts[8] - off + (mid - (starts[3] - off) + 1)
+            injector = FaultInjector(schedule={mid: 1, post: 2})
+            eng = fault_run(f"kills at fault points {mid} (mid-tick) and {post} (post-refill)",
+                            fault_injector=injector)
+            check(injector.fired == [mid, post] and eng.dead_units == {1, 2},
+                  f"[faults] {ex}: fired {injector.fired}, dead {eng.dead_units}")
+            rebuilt = eng._graphs["a"]._derive()  # the rebuilt session, its closures cold
+            del eng  # measure each run with no other engine alive
+            _, t_first = timed(rebuilt.spmv, x1)
+            check(np.array_equal(rebuilt.spmv(x1), y_updated),
+                  f"[faults] {ex}: the rebuilt session is not bitwise the updated one")
+            log(f"[faults] {ex}: first spmv of a rebuilt session (hoist + launch) "
+                f"{t_first:.3f} s [{where}]")
+            del rebuilt
+
+            def silence(eng, tick):
+                if tick == 2:
+                    eng.mark_unit_silent(5)
+                    time.sleep(0.1)
+
+            eng = fault_run("heartbeat death of unit 5",
+                            heartbeat=Heartbeat(units, timeout=0.05), tick=silence)
+            check(eng.dead_units == {5}, f"[faults] {ex}: heartbeat dead {eng.dead_units}")
+            del eng
+            latency = {u: 1.0 for u in range(units)}
+
+            def slow(eng, tick):
+                if tick == 2:
+                    latency[7] = 25.0
+
+            eng = fault_run("straggler demotion of unit 7", latency_probe=lambda: dict(latency),
+                            tick=slow)
+            check(eng.dead_units == {7}, f"[faults] {ex}: straggler dead {eng.dead_units}")
+            del eng
+            gens = {}
+
+            def second_checkpoint(eng):
+                gens["gen"], gens["s"] = timed(eng.checkpoint_graph, "a")
+
+            injector = FaultInjector(schedule={1: 3})  # between archive and marker commit
+            # No lane is live at the kill, so the recovery rebuilds nothing.
+            eng = fault_run("kill inside a second checkpoint_graph", collected=False,
+                            fault_injector=injector, before=second_checkpoint)
+            last = plancache.last_good_generation(d, "a")
+            check(injector.fired == [1] and last == gens["gen"] > 0,
+                  f"[faults] {ex}: checkpoint kill fired {injector.fired}, marker {last}, "
+                  f"committed {gens['gen']}")
+            log(f"[faults] {ex}: the killed checkpoint_graph left generation 0 committed, "
+                f"recovered and committed generation {gens['gen']} in {gens['s']:.2f} s "
+                f"[{where}]")
+            del eng, updated
+    torch.cuda.synchronize()
+    launches = bell_spmm.launches
+    by_variant = dict(bell_spmm.variant_launches)
+    check(launches > 0 and by_variant["stream"] == launches,
+          f"[faults] did not run on stream alone: {by_variant}")
+    log(f"[faults] phase {time.perf_counter() - t_phase:.1f} s; bell_spmm launches {launches} "
+        f"{by_variant}")
     return {"launches": launches, "variant_launches": by_variant}
 
 
-# -- phase 7: lm kernels -----------------------------------------------------
+# -- phase 8: dist -----------------------------------------------------------
+
+
+def phase_dist(main: dict, card: dict, device) -> dict:
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import audit_session, golden_signature, schedule_signature
+    from repro_torch.kernels.spmv import bell_spmm
+    from repro_torch.pmvc.dist import Communicator, make_pmvc_step, make_unit_mesh, pad_x
+    from repro_torch.pmvc.plan_device import OverlapPlan
+
+    where = card["smi"]
+    n = main["ref"].matrix.shape[0]
+    rng = np.random.default_rng(5)
+    xs = {b: rng.standard_normal((b, n)).astype(np.float32) for b in SPMV_BATCHES}
+    y_ref = {b: main["ref"].spmv(x) for b, x in xs.items()}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(d, 'store')}",
+                                world_size=1, rank=0)
+        try:
+            bell_spmm.launches = 0
+            bell_spmm.variant_launches = dict.fromkeys(bell_spmm.variant_launches, 0)
+            for ex, sess in main["sessions"].items():
+                shard = sess._derive(executor="shard_map")  # its own closure cache
+                dp = sess.device_plan
+                for b, x in xs.items():
+                    y = shard.spmv(x)
+                    err = rel_err(y, y_ref[b])
+                    check(y.shape == y_ref[b].shape and err < TOL_F32,
+                          f"[dist] {ex}: shard_map B={b} off the oracle by {err:.2e}")
+                    y_sim = sess.spmv(x)
+                    cols = sum(np.array_equal(y[j], shard.spmv(x[j:j + 1])[0]) for j in range(b))
+                    log(f"[dist] {ex}: shard_map B={b}: {err:.3e} off the float64 oracle; max "
+                        f"|shard_map - simulate| {np.abs(y - y_sim).max():.3e} "
+                        f"({'bitwise' if np.array_equal(y, y_sim) else 'not bitwise'}); "
+                        f"{cols} of {b} columns bitwise the B=1 spmv")
+                log_ = []
+                step = make_pmvc_step(dp, make_unit_mesh(dp.num_units, comm=Communicator(log=log_)),
+                                      selective=sess.selective, device=device)
+                mv = sess.device_spmm()
+                comm = Communicator()
+                sp = sess.selective
+                lanes = []  # the [U, U, L] schedule of each all_to_all
+                if isinstance(sp, OverlapPlan):
+                    lanes = [sp.wave_send_idx.shape[-1]] * sp.waves
+                elif sp is not None:
+                    lanes = [sp.send_idx.shape[-1]]
+                u_n = dp.num_units
+                times = []
+                for b, x in xs.items():
+                    xt = torch.as_tensor(x, device=device)
+                    xb = pad_x(xt, dp.num_col_blocks, dp.bn)
+                    log_.clear()
+                    step(xb)
+                    sig = schedule_signature(log_)
+                    golden = golden_signature(ex, getattr(sp, "waves", 1))
+                    check(sig == golden, f"[dist] {ex}: schedule {sig!r} is not {golden!r}")
+                    # The collectives alone, at the step's message sizes.
+                    y_like = torch.zeros((dp.num_row_blocks, dp.bm, b), device=device)
+                    sends = [torch.zeros((1, u_n, u_n, ln, dp.bn, b), device=device)
+                             for ln in lanes]
+                    coll_ms = cuda_ms(lambda: comm.psum(y_like), 10) + sum(
+                        cuda_ms(lambda t=t: comm.all_to_all(t)[1].wait(), 10) for t in sends)
+                    times.append((b, cuda_ms(lambda: step(xb), 10), cuda_ms(lambda: mv(xt), 10),
+                                  coll_ms))
+                log(f"[dist] {ex}: recorded schedule {sig!r}, the golden one; device ms "
+                    "(shard_map step on padded x / simulate spmv; the step's collectives "
+                    "alone): "
+                    + ", ".join(f"B={b} {s_ms:.4f} / {m_ms:.4f}; {c_ms:.4f} ({c_ms / s_ms:.0%})"
+                                for b, s_ms, m_ms, c_ms in times)
+                    + f" [{where}]")
+                rep = audit_session(sess)  # on the session's device, the card
+                check(rep.ok, f"[dist] {ex}: {rep}")
+                del step, shard
+            torch.cuda.synchronize()
+            launches = bell_spmm.launches
+            by_variant = dict(bell_spmm.variant_launches)
+        finally:
+            dist.destroy_process_group()
+    check(launches > 0 and by_variant["stream"] == launches,
+          f"[dist] did not run on stream alone: {by_variant}")
+    log("[dist] NCCL takes one rank per card: this run's group has one rank, all 16 units "
+        "stacked on it; the cross-card traffic of 4 ranks is unverified until a machine has 4 "
+        "cards")
+    log(f"[dist] phase {time.perf_counter() - t_phase:.1f} s; bell_spmm launches {launches} "
+        f"{by_variant}")
+    return {"launches": launches, "variant_launches": by_variant}
+
+
+# -- phase 9: lm kernels -----------------------------------------------------
 
 
 def moe_routing(rng, tokens: int, experts: int, top_k: int):
@@ -1252,7 +1553,7 @@ def phase_lm_attention(device) -> dict:
             "runs": runs}
 
 
-# -- phase 8: times ----------------------------------------------------------
+# -- phase 10: times ---------------------------------------------------------
 
 
 def bsr_library_ms(bt, xb, reps):
@@ -1283,7 +1584,7 @@ def bsr_library_ms(bt, xb, reps):
 
 def phase_times(main: dict, card: dict, device) -> list:
     from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles, spmm_variant
-    from repro_torch.pmvc.dist import hoist_tiles, pad_x
+    from repro_torch.pmvc.dist import hoist_tiles, pad_x, unit_sum
 
     sess = main["sessions"]["replicated"]
     dp = sess.device_plan
@@ -1304,7 +1605,7 @@ def phase_times(main: dict, card: dict, device) -> list:
         ms = cuda_ms(lambda: bell_spmm(bt, xsrc), reps)
         old_ms = cuda_ms(lambda: spmm_simt(bt, xsrc), reps)
         partials = bell_spmm(bt, xsrc)
-        sum_ms = cuda_ms(lambda: partials.sum(dim=0), reps)  # the executor's unit sum
+        sum_ms = cuda_ms(lambda: unit_sum(partials), reps)  # the executor's unit sum
         del partials
         plain_ms = cuda_ms(lambda: bell_spmm_plain(bt.tiles, bt.tile_row, bt.tile_src,
                                                    bt.counts, xsrc, nrb), 5, warmup=1)
@@ -1347,7 +1648,7 @@ def phase_times(main: dict, card: dict, device) -> list:
                 r = by_b[b]
                 log(f"[times] spmv replicated B={b}: of its device time {dev_ms:.4f} ms the "
                     f"kernel takes {r['ms'] / dev_ms:.1%} ({r['ms']:.4f} ms), the unit sum "
-                    f"partials.sum(dim=0) {r['sum_ms'] / dev_ms:.1%} ({r['sum_ms']:.4f} ms), "
+                    f"unit_sum {r['sum_ms'] / dev_ms:.1%} ({r['sum_ms']:.4f} ms), "
                     f"the rest (padding x, unblocking y) "
                     f"{(dev_ms - r['ms'] - r['sum_ms']) / dev_ms:.1%} [{where}]")
             else:
@@ -1355,8 +1656,8 @@ def phase_times(main: dict, card: dict, device) -> list:
                 log(f"[times] spmv {ex} B={b}: device {dev_ms:.4f} ms less the replicated "
                     f"kernel and unit sum ({r['ms'] + r['sum_ms']:.4f} ms) leaves "
                     f"{dev_ms - r['ms'] - r['sum_ms']:.4f} ms "
-                    f"({(dev_ms - r['ms'] - r['sum_ms']) / dev_ms:.1%}) for the emulated "
-                    f"exchange [{where}]")
+                    f"({(dev_ms - r['ms'] - r['sum_ms']) / dev_ms:.1%}) for the exchange's "
+                    f"gathers [{where}]")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1374,7 +1675,7 @@ def phase_times(main: dict, card: dict, device) -> list:
     y = mv(x)
     same = sum(bool(torch.equal(y[j:j + 1], mv(x[j:j + 1]))) for j in range(64))
     log(f"[times] spmv replicated: column j of B=64 bitwise the B=1 spmv for {same} of 64 "
-        f"columns (partials.sum(dim=0) on CUDA) [{where}]")
+        f"columns (unit_sum, a cumsum over the units, on CUDA) [{where}]")
     return rows
 
 
@@ -1573,6 +1874,8 @@ def main() -> int:
     main_path = phase_main_path(device)
     serve = phase_serve(main_path, card, args.seed)
     plans = phase_plans(main_path, card, args.seed, device)
+    faults = phase_faults(main_path, plans, card, args.seed)
+    dist_run = phase_dist(main_path, card, device)
     moe = phase_lm_moe(device)
     attn = phase_lm_attention(device)
     rows = phase_times(main_path, card, device)
@@ -1588,10 +1891,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bell_spmm.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:74",
-        "launches": main_path["launches"] + serve["launches"] + plans["launches"],
+        "launches": sum(p["launches"] for p in (main_path, serve, plans, faults, dist_run)),
         "variant": head["variant"],
-        "variant_launches": {v: c + serve["variant_launches"][v] + plans["variant_launches"][v]
-                             for v, c in main_path["variant_launches"].items()},
+        "variant_launches": {v: sum(p["variant_launches"][v]
+                                    for p in (main_path, serve, plans, faults, dist_run))
+                             for v in main_path["variant_launches"]},
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

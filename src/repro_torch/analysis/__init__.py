@@ -6,9 +6,14 @@ over in-memory plans (``SparseSession.verify``, ``distribute(validate=)``)
 and over on-disk plan archives (``python -m repro_torch.analysis
 <archive|store-dir>``). None of them runs an spmv. The passes read the
 numpy plan arrays, so they give the same findings as the JAX package's
-on the same plans and archives. The collective-schedule audit
-(``repro/analysis/jaxpr_audit.py``) waits for the multi-device executor
-(ROADMAP.md, Queue 1, item 6).
+on the same plans and archives.
+
+:mod:`repro_torch.analysis.schedule_audit` is the counterpart of the JAX
+package's jaxpr audit: it records the collectives and contractions of
+the ``shard_map`` executor's step (:func:`repro_torch.pmvc.dist.make_pmvc_step`)
+on one emulated rank and pins them against the golden schedules (all
+all_to_alls before the first contraction on the overlap path, float32
+contraction operands).
 """
 from repro_torch.analysis.passes import (
     LEVELS,
@@ -21,6 +26,15 @@ from repro_torch.analysis.passes import (
     plan_pass,
     plan_pass_names,
 )
+from repro_torch.analysis.schedule_audit import (
+    AuditReport,
+    audit_plan,
+    audit_schedule,
+    audit_session,
+    golden_signature,
+    schedule_signature,
+    trace_pmvc_step,
+)
 from repro_torch.analysis.plan_lint import (
     lint_archive,
     lint_plan,
@@ -29,6 +43,13 @@ from repro_torch.analysis.plan_lint import (
 )
 
 __all__ = [
+    "AuditReport",
+    "audit_schedule",
+    "audit_plan",
+    "audit_session",
+    "golden_signature",
+    "schedule_signature",
+    "trace_pmvc_step",
     "LEVELS",
     "Finding",
     "LintReport",

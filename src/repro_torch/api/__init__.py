@@ -17,10 +17,10 @@ Sessions compute on the card unless ``distribute(..., device="cpu")``
 asks for the CPU. Everything pluggable is a string-keyed registry entry:
 partitioners (``NL-HL NL-HC NC-HL NC-HC``, generic ``XX-YY`` combos,
 ``nezgt``, ``hyper``), exchanges (``replicated``, ``selective``,
-``overlap``, ``overlap:K``), executors (``simulate``, ``reference``),
-solvers (``power_iteration block_power_iteration jacobi pagerank cg``)
-and the serving engine's batch steppers (``pagerank jacobi spmv cg``;
-:mod:`repro_torch.serve`).
+``overlap``, ``overlap:K``), executors (``simulate``, ``shard_map``,
+``reference``), solvers (``power_iteration block_power_iteration jacobi
+pagerank cg``) and the serving engine's batch steppers (``pagerank
+jacobi spmv cg``; :mod:`repro_torch.serve`).
 
 Plans persist and warm-start through the plan store
 (:mod:`repro_torch.api.plancache`): ``sess.save(path)`` /

@@ -9,18 +9,27 @@ Built-ins:
 
 * ``"simulate"`` — every unit on the session's device, through the
   hand-written Block-ELL SpMM kernel (one launch per contraction for all
-  units). Honors the session's exchange strategy: replicated, the
-  emulated selective all_to_all, or the overlapped local/halo split.
+  units): the ``shard_map`` step below over one rank with no process
+  group (:class:`repro_torch.pmvc.dist.LocalCommunicator`). Honors the
+  session's exchange strategy: replicated, the emulated selective
+  all_to_all, or the overlapped local/halo split.
   Plan arrays are hoisted to the device once, when the executor is
   built.
+* ``"shard_map"`` — the units over the ranks of a ``torch.distributed``
+  process group, one rank per card (units stacked when a rank holds
+  several): the JAX package's executor of that name, on
+  :func:`repro_torch.pmvc.dist.make_pmvc_step`. SPMD: every rank plans
+  the same matrix and calls ``spmv`` with the same x, and every rank
+  gets the whole y. Building it without an initialised process group
+  raises ``RuntimeError``; nothing runs the units on one device in its
+  place.
 * ``"reference"`` — the thesis' sequential CSR algorithm (ch.1 §5),
   accumulated in float64 on the host: the oracle every other cell is
   pinned against.
 
-The JAX package's ``"shard_map"`` (one unit per device) is not
-registered yet; asking for it raises ``KeyError`` naming ROADMAP.md's
-item 6 — also at the first ``spmv`` of a plan archive whose meta names
-it, unless the load overrides the executor.
+Executors are built at a session's first ``spmv`` through them, so an
+archive whose meta names ``shard_map`` loads anywhere and runs in a
+process group.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.registry import Registry
+from repro_torch.pmvc.dist import make_pmvc_step, make_unit_mesh, pad_x, unblock_y
 from repro_torch.sparse.formats import csr_from_coo
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard
@@ -37,9 +47,7 @@ if TYPE_CHECKING:  # pragma: no cover - import cycle guard
 
 __all__ = ["EXECUTORS", "register_executor"]
 
-EXECUTORS = Registry(
-    "executor", pending={"shard_map": "ROADMAP.md, Queue 1, item 6"}
-)
+EXECUTORS = Registry("executor")
 register_executor = EXECUTORS.register
 
 SpmvFn = Callable[[np.ndarray], np.ndarray]
@@ -84,5 +92,25 @@ def simulate_executor(session: "SparseSession") -> SpmvFn:
         # that depends on the layout, so a transposed [B, N] view would
         # round row j of a batch apart from the same row alone.
         return mv(xt).contiguous().cpu().numpy()
+
+    return spmv
+
+
+@EXECUTORS.register("shard_map")
+def shard_map_executor(session: "SparseSession") -> SpmvFn:
+    dp = session.device_plan
+    step = make_pmvc_step(
+        dp,
+        make_unit_mesh(dp.num_units),
+        selective=session.selective,
+        device=session.device,
+        transform=session.tile_transform,
+    )
+    n, ncb, bn = dp.shape[0], dp.num_col_blocks, dp.bn
+    device = session.device
+
+    def spmv(x: np.ndarray) -> np.ndarray:
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=device)
+        return unblock_y(step(pad_x(xt, ncb, bn)), n).contiguous().cpu().numpy()
 
     return spmv

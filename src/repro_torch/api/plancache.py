@@ -1302,14 +1302,18 @@ def load_journal(cache_dir: str, name: str, gen: int) -> List[SparseDelta]:
     return out
 
 
-def replay_journal(sess: "SparseSession", cache_dir: str, name: str, gen: int):
+def replay_journal(
+    sess: "SparseSession", cache_dir: str, name: str, gen: int, *, count=None
+):
     """Fold generation ``gen``'s journal over ``sess`` via ``update()``.
 
     Updates are deterministic, so the result is bitwise-identical to the
-    live session that produced the journal. Returns the final session
-    (``sess`` itself when the journal is empty).
+    live session that produced the journal. ``count`` replays only the
+    first ``count`` deltas (all when ``None``): the session the live
+    chain was at after that many updates. Returns the final session
+    (``sess`` itself when nothing is replayed).
     """
-    for delta in load_journal(cache_dir, name, gen):
+    for delta in load_journal(cache_dir, name, gen)[:count]:
         sess = sess.update(delta)
     return sess
 

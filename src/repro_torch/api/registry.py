@@ -25,13 +25,9 @@ T = TypeVar("T")
 class Registry:
     """A named string → strategy mapping with a decorator registrar."""
 
-    def __init__(self, kind: str, pending: Optional[Dict[str, str]] = None):
+    def __init__(self, kind: str):
         self.kind = kind
         self._entries: Dict[str, Callable] = {}
-        # Names the JAX package registers that the port has not ported yet,
-        # each with where ROADMAP.md lists it: asking for one still raises
-        # KeyError, and the message says where the work stands.
-        self._pending = dict(pending or {})
 
     def register(self, name: str, obj: Optional[T] = None):
         """Register ``obj`` under ``name``; usable as a decorator.
@@ -52,10 +48,8 @@ class Registry:
         try:
             return self._entries[name]
         except KeyError:
-            hint = self._pending.get(name)
-            hint = f"; {name!r} is not ported yet ({hint})" if hint else ""
             raise KeyError(
-                f"unknown {self.kind} {name!r}; known: {sorted(self._entries)}{hint}"
+                f"unknown {self.kind} {name!r}; known: {sorted(self._entries)}"
             ) from None
 
     def names(self) -> list:

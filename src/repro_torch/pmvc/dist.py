@@ -24,17 +24,37 @@ from the owned x shard, then one per wave from its workspace.
 Entry points: ``make_simulate_fn`` (a reusable closure over hoisted
 plan arrays — what the ``simulate`` executor and the device-resident
 solver loops build on) and ``pmvc_simulate`` /
-``pmvc_simulate_selective`` / ``pmvc_simulate_overlap``. ``phase_costs``
-is the analytic per-phase model, copied from the JAX package.
+``pmvc_simulate_selective`` / ``pmvc_simulate_overlap``. They are the
+step below over a :class:`LocalCommunicator` — one rank holding every
+unit, its collectives the identity — so one code path serves one device
+and many ranks. ``phase_costs`` is the analytic per-phase model, copied
+from the JAX package.
+
+**Across ranks** — the counterpart of the JAX package's ``shard_map``
+step: :func:`make_unit_mesh` lays the plan's units over the ranks of a
+``torch.distributed`` process group (rank r holds units ``[r·U/W,
+(r+1)·U/W)``, stacked), and :func:`make_pmvc_step` builds one rank's
+step, SPMD: every rank plans the same matrix and calls the step with the
+same x. A rank contracts its units in one launch of the kernel per
+contraction, sums its units' partials in ascending unit order, and
+``all_reduce`` takes the place of ``psum``; the selective exchange is
+one ``all_to_all_single``, and overlap:K issues every wave's
+``all_to_all_single`` before the local contraction. The step reaches
+its collectives and contractions through a :class:`Communicator`; the
+schedule audit (:mod:`repro_torch.analysis.schedule_audit`) records a
+:class:`LocalCommunicator`'s calls.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.kernels.spmv import bell_spmm, bell_tiles, host_tensor
+from repro_torch import resolve_device
+from repro_torch.kernels.spmv import BellTiles, bell_spmm, bell_tiles, host_tensor
 from repro_torch.pmvc.plan_device import (
     DevicePlan,
     ExchangePlan,
@@ -43,6 +63,12 @@ from repro_torch.pmvc.plan_device import (
 )
 
 __all__ = [
+    "Communicator",
+    "Event",
+    "LocalCommunicator",
+    "UnitMesh",
+    "make_pmvc_step",
+    "make_unit_mesh",
     "pmvc_simulate",
     "pmvc_simulate_selective",
     "pmvc_simulate_overlap",
@@ -52,6 +78,7 @@ __all__ = [
     "unblock_y",
     "pad_x",
     "scatter_x_owned",
+    "unit_sum",
     "MESSAGE_OVERHEAD_BYTES",
     "MODEL_LINK_BYTES_PER_S",
     "MODEL_UNIT_FLOPS_PER_S",
@@ -129,40 +156,267 @@ def _owned_blocks(owned: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     return torch.where(omask, xb[owned.clamp(min=0)], 0.0)
 
 
-def _emulated_exchange(owned, send_idx, xb):
-    """Device-side ownership scatter + emulated static all_to_all:
-    ``recv[u, v, l] = send[v, u, l]`` — the exact routing of the
-    multi-device executors (−1 slots masked to zero blocks). ``owned`` is
-    ``[U, per]``, ``send_idx`` ``[U, U, L]``, ``xb`` the padded global x
-    ``[NCB, bn(, B)]``. Returns ``(x_owned, recv)``: the block-col-sharded
-    x ``[U, per, bn(, B)]`` and the per-unit receive workspace ``[U(dst),
-    U(src), L, bn(, B)]`` (a view)."""
-    x_owned = _owned_blocks(owned, xb)
-    smask = (send_idx >= 0).reshape(send_idx.shape + (1,) * (xb.dim() - 1))
-    units = torch.arange(owned.shape[0], device=xb.device)
-    send = torch.where(
-        smask, x_owned[units[:, None, None], send_idx.clamp(min=0)], 0.0
-    )  # [U(src), U(dst), L, bn(, B)]
-    return x_owned, send.transpose(0, 1)
-
-
-def _emulated_wave_exchange(owned, wave_send_idx, xb):
-    """Wave variant of :func:`_emulated_exchange`: ``wave_send_idx`` is
-    ``[U(src), K, U(dst), L]`` (one all_to_all schedule per halo wave).
-    Returns ``(x_owned, recv)`` with ``recv`` ``[U(dst), K, U(src), L,
-    bn(, B)]`` — the same swap on the src/dst axes, wave axis carried
-    through."""
-    x_owned = _owned_blocks(owned, xb)
-    smask = (wave_send_idx >= 0).reshape(wave_send_idx.shape + (1,) * (xb.dim() - 1))
-    units = torch.arange(owned.shape[0], device=xb.device)
-    send = torch.where(
-        smask, x_owned[units[:, None, None, None], wave_send_idx.clamp(min=0)], 0.0
-    )  # [U(src), K, U(dst), L, bn(, B)]
-    return x_owned, send.transpose(0, 2)
-
-
 def _index(a: np.ndarray, device) -> torch.Tensor:
     return host_tensor(np.asarray(a), device).long()
+
+
+# -- across ranks: the shard_map counterpart on torch.distributed ------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Event:
+    """One call a step made through its :class:`Communicator`: ``"a2a"``,
+    ``"dot"`` (with the dtypes of the tiles and of the x source) or
+    ``"psum"``."""
+
+    op: str
+    dtypes: Tuple[torch.dtype, ...] = ()
+
+
+class Communicator:
+    """One rank's collectives and contractions: ``torch.distributed`` on
+    ``group`` (the default group when ``None``) and the hand-written
+    kernel. When ``log`` is a list, every call is appended to it as an
+    :class:`Event`, in issue order.
+
+    Raises ``RuntimeError`` when no process group is initialised: the
+    units of a plan are never run on one device in its place."""
+
+    def __init__(self, group=None, *, log: Optional[List[Event]] = None):
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "no torch.distributed process group is initialised: the shard_map "
+                "step runs one rank per card (call torch.distributed."
+                "init_process_group first); it never runs the units on one device "
+                "in its place"
+            )
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.log = log
+
+    def _record(self, op: str, *dtypes: torch.dtype) -> None:
+        if self.log is not None:
+            self.log.append(Event(op, dtypes))
+
+    def all_to_all(self, send: torch.Tensor):
+        """Issue ``all_to_all_single`` on ``send`` (dim 0 split evenly
+        over the ranks) without waiting; returns ``(recv, work)``, and
+        ``recv`` is ready once ``work.wait()`` returns."""
+        self._record("a2a")
+        send = send.contiguous()
+        recv = torch.empty_like(send)
+        work = dist.all_to_all_single(recv, send, group=self.group, async_op=True)
+        return recv, work
+
+    def dot(self, bt: BellTiles, xsrc: torch.Tensor) -> torch.Tensor:
+        """One contraction: the kernel over the rank's stacked units."""
+        self._record("dot", bt.tiles.dtype, xsrc.dtype)
+        return bell_spmm(bt, xsrc)
+
+    def psum(self, y: torch.Tensor) -> torch.Tensor:
+        """Sum ``y`` over the ranks, in place."""
+        self._record("psum")
+        dist.all_reduce(y, group=self.group)
+        return y
+
+
+class _Done:
+    """A finished collective's handle."""
+
+    def wait(self) -> None:
+        return None
+
+
+class LocalCommunicator(Communicator):
+    """A :class:`Communicator` over one rank and no process group: every
+    unit of a plan on one device, which is the ``simulate`` executor.
+    ``all_to_all`` hands back what it is given, ``psum`` its input, and
+    contractions launch the kernel as on a group; ``log`` as for
+    :class:`Communicator`."""
+
+    def __init__(self, *, log: Optional[List[Event]] = None):
+        self.group = None
+        self.world = 1
+        self.rank = 0
+        self.log = log
+
+    def all_to_all(self, send: torch.Tensor):
+        self._record("a2a")
+        return send, _Done()
+
+    def psum(self, y: torch.Tensor) -> torch.Tensor:
+        self._record("psum")
+        return y
+
+
+@dataclasses.dataclass(frozen=True)
+class UnitMesh:
+    """A plan's units over the ranks of a communicator's group: rank r
+    holds the ``U / W`` units ``[r·U/W, (r+1)·U/W)``, stacked."""
+
+    num_units: int
+    comm: Communicator
+
+    @property
+    def units(self) -> range:
+        per = self.num_units // self.comm.world
+        return range(self.comm.rank * per, (self.comm.rank + 1) * per)
+
+
+def make_unit_mesh(num_units: int, *, comm: Optional[Communicator] = None) -> UnitMesh:
+    """Lay ``num_units`` units over the ranks of ``comm`` (a
+    :class:`Communicator` on the default process group when omitted: one
+    rank per unit, or per card with units stacked). Raises ``ValueError``
+    when the units do not split evenly over the ranks, as the JAX
+    package's ``make_unit_mesh`` raises without enough devices."""
+    comm = Communicator() if comm is None else comm
+    if num_units % comm.world:
+        raise ValueError(
+            f"{num_units} units do not split evenly over {comm.world} ranks; "
+            "the ranks must divide the plan's units"
+        )
+    return UnitMesh(num_units, comm)
+
+
+def unit_sum(partials: torch.Tensor) -> torch.Tensor:
+    """A rank's partial y from its units' stacked partials ``[Lr, NRB,
+    bm(, B)]``, added in ascending unit order in one launch: a scan fixes
+    its order and a sum does not, so this is the last prefix of a
+    ``cumsum`` over the units."""
+    return partials.cumsum(dim=0)[-1].clone()
+
+
+def _send_buffer(x_owned: torch.Tensor, send_idx: torch.Tensor, world: int) -> torch.Tensor:
+    """The ``all_to_all_single`` input of a rank: ``send_idx`` ``[Lr, U,
+    L]`` names, for each local unit and destination unit, the slots of
+    the local x shard ``x_owned`` ``[Lr, per, bn(, B)]`` it sends (−1 =
+    unused lane, a zero block). Laid out ``[W, Lr(dst), Lr(src), L,
+    bn(, B)]``, so dim 0's W pieces go to the ranks in order."""
+    lr, u = send_idx.shape[0], send_idx.shape[1]
+    smask = (send_idx >= 0).reshape(send_idx.shape + (1,) * (x_owned.dim() - 2))
+    local = torch.arange(lr, device=x_owned.device)[:, None, None]
+    send = torch.where(smask, x_owned[local, send_idx.clamp(min=0)], 0.0)
+    send = send.reshape(lr, world, u // world, *send.shape[2:])
+    return send.permute(1, 2, 0, *range(3, send.dim()))
+
+
+def _workspace(recv: torch.Tensor, recv_src: torch.Tensor, recv_lane: torch.Tensor) -> torch.Tensor:
+    """Each local unit's compact workspace ``[Lr, W', bn(, B)]`` from the
+    received ``[W, Lr(dst), Lr(src), L, bn(, B)]``: ``recv_src`` /
+    ``recv_lane`` ``[Lr, W']`` name the source unit and lane of each
+    slot (source units numbered across the ranks in order)."""
+    w, lr, ls = recv.shape[:3]
+    by_src = recv.permute(1, 0, 2, *range(3, recv.dim())).reshape(lr, w * ls, *recv.shape[3:])
+    local = torch.arange(lr, device=recv.device)[:, None]
+    return by_src[local, recv_src, recv_lane]
+
+
+def make_pmvc_step(
+    plan: DevicePlan,
+    mesh: UnitMesh,
+    *,
+    selective: ExchangePlan = None,
+    overlap: Optional[bool] = None,
+    device=None,
+    transform=None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Build one rank's distributed PMVC step, ``step(xb) -> y blocks``.
+
+    ``xb`` is the padded global x, ``[NCB, bn]`` or ``[NCB, bn, B]``, the
+    same on every rank; the step returns the y blocks ``[NRB, bm(, B)]``,
+    replicated on every rank. Each contraction is one launch of the
+    kernel over the rank's units (:meth:`Communicator.dot`); the rank
+    sums its units' partials in ascending unit order, then one
+    ``all_reduce`` sums over the ranks. One collective carries all B
+    vectors. By exchange:
+
+    * replicated (``selective=None``): contraction, ``all_reduce``;
+    * selective (a :class:`SelectivePlan`): one ``all_to_all_single`` of
+      the owned x blocks each unit needs, the contraction from each
+      unit's compact workspace, ``all_reduce``;
+    * overlap:K (an :class:`OverlapPlan`, or ``overlap=True``): every
+      wave's ``all_to_all_single`` issued before the local contraction
+      (from the unit's own x shard); wave k's halo is contracted after
+      waiting on wave k alone; ``all_reduce``. ``overlap=False`` with an
+      :class:`OverlapPlan` runs its selective schedule blocking.
+
+    The rank's plan arrays are hoisted to ``device`` (the card when
+    omitted) once, here; ``transform`` is the value-view map of
+    :func:`hoist_tiles`.
+    """
+    dev = resolve_device(device)
+    comm = mesh.comm
+    lo, hi = mesh.units.start, mesh.units.stop
+    nrb = plan.num_row_blocks
+    if overlap is None:
+        overlap = isinstance(selective, OverlapPlan)
+    if not overlap and isinstance(selective, OverlapPlan):
+        selective = selective.selective
+
+    def finish(partials: torch.Tensor) -> torch.Tensor:
+        return comm.psum(unit_sum(partials))
+
+    def batched(run):
+        def step(xb: torch.Tensor) -> torch.Tensor:
+            y = run(xb if xb.dim() == 3 else xb[..., None])
+            return y if xb.dim() == 3 else y[..., 0]
+
+        return step
+
+    def hoist(tiles: np.ndarray) -> torch.Tensor:
+        return hoist_tiles(np.ascontiguousarray(tiles), transform, device=dev)
+
+    if overlap:
+        op = selective
+        owned = _index(op.selective.owned[lo:hi], dev)  # [Lr, per]
+        local = bell_tiles(hoist(op.local_tiles[lo:hi]), op.local_row[lo:hi],
+                           op.local_slot[lo:hi], op.local_counts[lo:hi], nrb)
+        waves = [
+            bell_tiles(hoist(op.halo_tiles[lo:hi, k]), op.halo_row[lo:hi, k],
+                       op.halo_slot[lo:hi, k], op.halo_wave_counts[lo:hi, k], nrb)
+            for k in range(op.waves)
+        ]
+        wave_send_idx = _index(op.wave_send_idx[lo:hi], dev)  # [Lr, K, U, L]
+        wave_recv_src = _index(op.wave_recv_src[lo:hi], dev)  # [Lr, K, W']
+        wave_recv_lane = _index(op.wave_recv_lane[lo:hi], dev)
+
+        def run_overlap(x4: torch.Tensor) -> torch.Tensor:
+            x_owned = _owned_blocks(owned, x4)
+            # Every wave's collective issued before any contraction; wave
+            # k's halo waits on wave k alone.
+            sent = [comm.all_to_all(_send_buffer(x_owned, wave_send_idx[:, k], comm.world))
+                    for k in range(op.waves)]
+            partials = comm.dot(local, x_owned)
+            for k, bt in enumerate(waves):
+                recv, work = sent[k]
+                work.wait()
+                ws = _workspace(recv, wave_recv_src[:, k], wave_recv_lane[:, k])
+                partials = partials + comm.dot(bt, ws)
+            return finish(partials)
+
+        return batched(run_overlap)
+
+    tiles = hoist(plan.tiles[lo:hi])
+    if selective is None:
+        bt = bell_tiles(tiles, plan.tile_row[lo:hi], plan.tile_col[lo:hi],
+                        plan.real_tiles[lo:hi], nrb)
+        return batched(lambda x4: finish(comm.dot(bt, x4[None])))
+
+    sp = selective
+    bt = bell_tiles(tiles, plan.tile_row[lo:hi], sp.tile_col_local[lo:hi],
+                    plan.real_tiles[lo:hi], nrb)
+    owned = _index(sp.owned[lo:hi], dev)  # [Lr, per]
+    send_idx = _index(sp.send_idx[lo:hi], dev)  # [Lr, U, L]
+    recv_src = _index(sp.recv_src[lo:hi], dev)  # [Lr, W']
+    recv_lane = _index(sp.recv_lane[lo:hi], dev)
+
+    def run_selective(x4: torch.Tensor) -> torch.Tensor:
+        recv, work = comm.all_to_all(_send_buffer(_owned_blocks(owned, x4), send_idx, comm.world))
+        work.wait()
+        return finish(comm.dot(bt, _workspace(recv, recv_src, recv_lane)))
+
+    return batched(run_selective)
 
 
 def make_simulate_fn(
@@ -174,90 +428,19 @@ def make_simulate_fn(
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build ``run(xb) -> y_blocks``, the PMVC over all units on one
     device, on padded x blocks (``[NCB, bn]`` or ``[NCB, bn, B]`` →
-    ``[NRB, bm(, B)]``).
+    ``[NRB, bm(, B)]``): :func:`make_pmvc_step` over a
+    :class:`LocalCommunicator`, so each exchange is the same index
+    gathers as across ranks, with the collectives the identity.
 
     ``selective`` picks the exchange regime: ``None`` (replicated), a
     :class:`SelectivePlan` (blocking selective all_to_all) or an
     :class:`OverlapPlan` (local tiles contract from the owned x shard,
-    each halo wave from its delivered workspace).
-
-    Plan arrays are hoisted to ``device`` once, here, so callers that
-    keep the closure never re-pay the host→device copy. ``transform`` is
-    the optional value-view map applied to tile payloads at hoist time
-    (see :func:`hoist_tiles`). Every contraction is one launch of
-    :func:`repro_torch.kernels.spmv.bell_spmm` over all units.
+    each halo wave from its delivered workspace). Plan arrays are
+    hoisted to ``device`` once, here; ``transform`` is the value-view
+    map of :func:`hoist_tiles`.
     """
-    nrb = plan.num_row_blocks
-    if isinstance(selective, OverlapPlan):
-        return _make_simulate_overlap_fn(plan, selective, device=device, transform=transform)
-    tiles = hoist_tiles(plan.tiles, transform, device=device)
-
-    if selective is None:
-        bt = bell_tiles(tiles, plan.tile_row, plan.tile_col, plan.real_tiles, nrb)
-
-        def run(xb: torch.Tensor) -> torch.Tensor:
-            x4 = xb if xb.dim() == 3 else xb[..., None]
-            y = bell_spmm(bt, x4[None]).sum(dim=0)
-            return y if xb.dim() == 3 else y[..., 0]
-
-        return run
-
-    sp = selective
-    bt = bell_tiles(tiles, plan.tile_row, sp.tile_col_local, plan.real_tiles, nrb)
-    owned = _index(sp.owned, device)  # [U, per]
-    send_idx = _index(sp.send_idx, device)  # [U, U, L]
-    recv_src = _index(sp.recv_src, device)  # [U, W]
-    recv_lane = _index(sp.recv_lane, device)
-    units = torch.arange(sp.num_units, device=device)[:, None]
-
-    def run_selective(xb: torch.Tensor) -> torch.Tensor:
-        x4 = xb if xb.dim() == 3 else xb[..., None]
-        _, recv = _emulated_exchange(owned, send_idx, x4)
-        ws = recv[units, recv_src, recv_lane]  # [U, W, bn, B] compact workspaces
-        y = bell_spmm(bt, ws).sum(dim=0)
-        return y if xb.dim() == 3 else y[..., 0]
-
-    return run_selective
-
-
-def _make_simulate_overlap_fn(
-    plan: DevicePlan, op: OverlapPlan, *, device, transform=None
-) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Overlapped path: the local tiles contract straight from the owned
-    x shard (no dependency on the emulated all_to_all), the halo tiles —
-    one wave at a time, one launch each — from the delivered per-wave
-    workspaces. Every unit's partial is local + wave 0 + … + wave K−1, in
-    that order, as in the JAX package."""
-    nrb = plan.num_row_blocks
-    sp = op.selective
-    local = bell_tiles(
-        hoist_tiles(op.local_tiles, transform, device=device),
-        op.local_row, op.local_slot, op.local_counts, nrb,
-    )
-    waves = [
-        bell_tiles(
-            hoist_tiles(np.ascontiguousarray(op.halo_tiles[:, k]), transform, device=device),
-            op.halo_row[:, k], op.halo_slot[:, k], op.halo_wave_counts[:, k], nrb,
-        )
-        for k in range(op.waves)
-    ]
-    owned = _index(sp.owned, device)  # [U, per]
-    wave_send_idx = _index(op.wave_send_idx, device)  # [U, K, U, L]
-    wave_recv_src = _index(op.wave_recv_src, device)  # [U, K, W]
-    wave_recv_lane = _index(op.wave_recv_lane, device)
-    units = torch.arange(sp.num_units, device=device)[:, None]
-
-    def run_overlap(xb: torch.Tensor) -> torch.Tensor:
-        x4 = xb if xb.dim() == 3 else xb[..., None]
-        x_owned, recv = _emulated_wave_exchange(owned, wave_send_idx, x4)
-        partials = bell_spmm(local, x_owned)
-        for k, bt in enumerate(waves):
-            ws = recv[units, k, wave_recv_src[:, k], wave_recv_lane[:, k]]
-            partials = partials + bell_spmm(bt, ws)
-        y = partials.sum(dim=0)
-        return y if xb.dim() == 3 else y[..., 0]
-
-    return run_overlap
+    mesh = make_unit_mesh(plan.num_units, comm=LocalCommunicator())
+    return make_pmvc_step(plan, mesh, selective=selective, device=device, transform=transform)
 
 
 def _run_on_host(plan: DevicePlan, selective: ExchangePlan, x: np.ndarray, device) -> np.ndarray:

@@ -18,10 +18,11 @@ Design points, in the order they matter:
   scheduling logic — every fairness, deadline, and recovery decision
   lives in ``step()``, which takes the engine lock for the whole tick
   body. The driver thread and any number of submitting threads
-  serialize through that lock, so the guarded tick body never observes
-  a half-submitted ticket. The deterministic fake-clock path keeps
-  working too: tests that want exact tick counts simply don't start a
-  driver.
+  serialize through that lock, so the snapshot/restore recovery of the
+  fault runtime runs under the driver unchanged (the guarded tick body
+  never observes a half-submitted ticket). The deterministic fake-clock
+  path keeps working too: tests that want exact tick counts simply
+  don't start a driver.
 * **The driver thread launches the kernels.** Each tick's SpMMs run in
   this thread, on its current CUDA stream — the default stream, since
   the driver sets none. The kernels' launch counters are plain

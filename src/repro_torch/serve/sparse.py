@@ -69,32 +69,69 @@ for and an evicted one is re-read from disk.
 :class:`~repro_torch.sparse.delta.SparseDelta` to a registered graph
 with snapshot isolation: lanes in flight finish against the session
 they started on, and requests for the graph wait until those lanes
-drain, then run against the updated one.
+drain, then run against the updated one. With a ``recovery_dir`` the
+delta is journaled against the graph's last committed generation
+(checkpointing one first when none exists), so a crash replays exactly
+the live update chain.
 
-**Not ported yet** (ROADMAP.md, Queue 1, item 4): the fault-tolerance
-runtime — a ``fault_injector``, ``heartbeat``, ``recovery_dir`` or
-``latency_probe``, :meth:`SparseServeEngine.mark_unit_silent`, and
-:meth:`SparseServeEngine.checkpoint_graph`, which needs
-``recovery_dir``. Each raises ``NotImplementedError`` naming the item.
-The engine's fault points (:meth:`SparseServeEngine._fault_tick`) are
-counted already, in the JAX package's order, ``update_graph``'s two
-included.
+**Fault tolerance.** Wire in the :mod:`repro_torch.runtime.fault`
+scaffolding and the engine survives unit loss mid-anything: a
+``fault_injector`` raises :class:`~repro_torch.runtime.fault.WorkerFailure`
+at scheduled kill points (inside ``step``, ``update_graph``, and — via
+``save_generation``'s ``before_commit`` — mid-checkpoint), at the same
+points as the JAX engine, so one schedule kills at the same place in
+both packages; every guarded body runs against a snapshot of all
+mutable scheduler state (stepper arrays, slot occupancy, each lane's
+source, ticket lifecycle fields, queue order, tenant deficits,
+metrics), so recovery = restore snapshot → reload each laned graph from
+its last good generation + journal → remap the plan's per-unit shards
+onto the survivor mesh (:func:`repro_torch.runtime.elastic.elastic_restart`)
+→ rebind steppers with their saved state → rerun the body. Steppers are
+deterministic, so the recovered trajectory is bitwise the uninterrupted
+one — no ticket is lost, duplicated, or double-counted. A ``heartbeat``
+detects units that die *between* ticks, and a ``latency_probe`` +
+per-unit :class:`~repro_torch.runtime.fault.StragglerMonitor` demotes
+persistently slow units through the same recovery path.
+
+Unlike the JAX engine, recovery keeps snapshot isolation: a lane that an
+``update_graph`` left stale is rebuilt around the matrix it started on
+(its own source, or with a ``recovery_dir`` the last good generation
+plus the part of the journal its source had seen), never around the
+updated graph, so a half-done solve is not moved onto the new matrix.
 """
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import enum
 import threading
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-from repro_torch.api.plancache import hydrate_session
+from repro_torch import resolve_device
+from repro_torch.api.plancache import (
+    hydrate_session,
+    journal_delta,
+    last_good_generation,
+    load_journal,
+    load_last_good,
+    replay_journal,
+    save_generation,
+)
 from repro_torch.api.session import SparseSession, UpdateReport
 from repro_torch.api.solvers import STEPPERS, BatchStepper, SolveResult
+from repro_torch.runtime.elastic import P, elastic_restart, local_devices, make_mesh_any
+from repro_torch.runtime.fault import (
+    FaultInjector,
+    Heartbeat,
+    StragglerMonitor,
+    WorkerFailure,
+)
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.sparse.delta import SparseDelta
 
 __all__ = [
     "QueueFullError",
@@ -107,9 +144,6 @@ __all__ = [
 # submit(tol=...) default marker: distinguishes "use the engine default"
 # from an explicit tol=None ("no early exit").
 _UNSET = object()
-
-# Where ROADMAP.md lists what this module leaves out.
-_RUNTIME = "the fault-tolerance runtime (ROADMAP.md, Queue 1, item 4)"
 
 
 def _hit_tol(tol: Optional[float], res: float) -> bool:
@@ -218,11 +252,15 @@ class _Lane:
     (graph, solver, config) key, with per-slot occupancy. ``source`` is
     the graph's registered source when the lane was built; once
     :meth:`SparseServeEngine.update_graph` replaces it, the lane is
-    stale: it finishes what it holds and takes no new ticket."""
+    stale: it finishes what it holds and takes no new ticket.
+    ``lineage`` is set then, under a ``recovery_dir``: the committed
+    generation and the number of its journaled deltas that the lane's
+    source is, which is how recovery rebuilds that matrix from disk."""
 
     def __init__(self, stepper: BatchStepper, source):
         self.stepper = stepper
         self.source = source
+        self.lineage: Optional[Tuple[int, int]] = None
         self.slots = stepper.slots
         self.tickets: List[Optional[Ticket]] = [None] * self.slots
         self.active = np.zeros(self.slots, dtype=bool)
@@ -270,8 +308,9 @@ class SparseServeEngine:
     1.0). ``default_iters`` / ``default_tol`` apply when a request
     doesn't override them (``default_tol=None``: no early exit).
     ``executor`` overrides the executor of registered sessions;
-    ``device`` is where graphs registered by path are hydrated (the card
-    when omitted; a registered session keeps its own device);
+    ``device`` is where graphs registered by path are hydrated and where
+    a recovery rebuilds sessions (the card when omitted; a registered
+    session keeps its own device until then);
     ``clock`` is injectable (tests drive deadlines with a fake clock;
     production uses ``time.monotonic``).
 
@@ -281,10 +320,19 @@ class SparseServeEngine:
     tick cadence while request threads ``submit()`` and ``wait()`` on
     tickets. The engine itself never blocks beyond one tick.
 
-    ``fault_injector``, ``heartbeat``, ``recovery_dir`` and
-    ``latency_probe`` are the JAX package's fault-tolerance wiring; they
-    are not ported yet (ROADMAP.md, Queue 1, item 4), and giving any of
-    them raises ``NotImplementedError``.
+    Fault-tolerance wiring (all optional, zero overhead when absent):
+    ``fault_injector`` schedules :class:`WorkerFailure` at engine fault
+    points (a global counter ticks at each one — see :meth:`_fault_tick`
+    for the ordering); ``heartbeat`` detects units dead between ticks;
+    ``recovery_dir`` enables generation checkpoints + delta journaling
+    (:meth:`checkpoint_graph`, :meth:`update_graph`) and makes recovery
+    reload from disk instead of the live session; ``latency_probe``
+    (``() -> {unit: latency}``) feeds per-unit straggler monitors —
+    ``straggler_patience`` consecutive flags demote the unit through
+    the unit-loss path. ``max_recoveries`` bounds recovery attempts per
+    guarded call so a hard-wedged cluster fails loudly. ``recovery_log``
+    holds one record per recovery: the lost unit and its seconds by part
+    (see :meth:`_recover_unit_loss`).
     """
 
     def __init__(
@@ -299,19 +347,14 @@ class SparseServeEngine:
         executor: Optional[str] = None,
         device=None,
         clock=time.monotonic,
-        fault_injector=None,
-        heartbeat=None,
+        fault_injector: Optional[FaultInjector] = None,
+        heartbeat: Optional[Heartbeat] = None,
         recovery_dir: Optional[str] = None,
-        latency_probe=None,
+        latency_probe: Optional[Callable[[], Dict[int, float]]] = None,
+        straggler_factor: float = 3.0,
+        straggler_patience: int = 3,
+        max_recoveries: int = 8,
     ):
-        wired = [name for name, value in (
-            ("fault_injector", fault_injector), ("heartbeat", heartbeat),
-            ("recovery_dir", recovery_dir), ("latency_probe", latency_probe),
-        ) if value is not None]
-        if wired:
-            raise NotImplementedError(
-                f"{', '.join(wired)}: {_RUNTIME} is not ported yet"
-            )
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if max_queue < 1:
@@ -350,8 +393,26 @@ class SparseServeEngine:
         self._lock = threading.RLock()
         self._work_event = threading.Event()
         self._pending_events: List[Ticket] = []
-        # Fault points passed so far (see _fault_tick).
+        # -- fault tolerance state
+        self.fault_injector = fault_injector
+        self.heartbeat = heartbeat
+        self.recovery_dir = recovery_dir
+        self.latency_probe = latency_probe
+        self.straggler_patience = int(straggler_patience)
+        self.max_recoveries = int(max_recoveries)
+        self.dead_units: set = set()
+        self.recoveries = 0
+        self.recovery_log: List[Dict[str, float]] = []
         self._fault_steps = 0
+        self._silent_units: set = set()
+        # (committed generation, journaled deltas) of each graph's
+        # registered source, once a recovery_dir holds one.
+        self._lineage: Dict[str, Tuple[int, int]] = {}
+        self._straggler_monitors: Dict[int, StragglerMonitor] = (
+            collections.defaultdict(lambda: StragglerMonitor(factor=straggler_factor))
+        )
+        self._straggler_strikes: Dict[int, int] = collections.defaultdict(int)
+        self._probe_count = 0
 
     # -- registration ------------------------------------------------------
 
@@ -376,32 +437,38 @@ class SparseServeEngine:
         return sorted(self._graphs)
 
     def _session(self, name: str) -> SparseSession:
-        src = self._graphs[name]
-        if isinstance(src, str):
-            return hydrate_session(src, executor=self.executor, device=self.device)
-        if self.executor is not None and src.executor != self.executor:
-            return src.with_executor(self.executor)
-        return src
+        return self._source_session(self._graphs[name])
 
-    # -- streaming updates, checkpoints, fault handling ---------------------
+    def _source_session(self, source) -> SparseSession:
+        """The session a registered ``source`` (session or plan path)
+        stands for, as :meth:`_session` resolves it."""
+        if isinstance(source, str):
+            return hydrate_session(source, executor=self.executor, device=self.device)
+        if self.executor is not None and source.executor != self.executor:
+            return source.with_executor(self.executor)
+        return source
+
+    # -- streaming updates + checkpoints -----------------------------------
 
     def update_graph(
-        self, name: str, delta, *, force: Optional[str] = None
+        self, name: str, delta: SparseDelta, *, force: Optional[str] = None
     ) -> UpdateReport:
         """Apply ``delta`` to registered graph ``name`` in place.
 
-        Runs :meth:`SparseSession.update` (patch-or-replan), then swaps
-        the registered source to the mutated session. Lanes already
-        running keep their old session until they drain — snapshot
-        isolation, so an in-flight solve is never answered half against
-        each matrix — and requests for the graph are admitted to a lane
-        over the new session once the old lane has drained. Returns the
-        update's :class:`~repro_torch.api.session.UpdateReport`.
+        Runs :meth:`SparseSession.update` (patch-or-replan), journals the
+        delta against the graph's committed generation when the engine
+        has a ``recovery_dir`` (checkpointing a base generation first if
+        none exists yet), then swaps the registered source to the
+        mutated session. Lanes already running keep their old session
+        until they drain — snapshot isolation, so an in-flight solve is
+        never answered half against each matrix — and requests for the
+        graph are admitted to a lane over the new session once the old
+        lane has drained. Returns the update's
+        :class:`~repro_torch.api.session.UpdateReport`.
 
         Fault points: one before the update is computed, one after it
-        but before the swap, as in the JAX package. Journaling the
-        delta against a ``recovery_dir`` waits for the runtime
-        (ROADMAP.md, Queue 1, item 4).
+        but before any side effect — a kill at either leaves the engine
+        unchanged, recovery reruns the whole method.
         """
         if name not in self._graphs:
             known = ", ".join(sorted(self._graphs)) or "<none>"
@@ -412,6 +479,21 @@ class SparseServeEngine:
             self._fault_tick()  # kill point: before the update
             new = sess.update(delta, force=force)
             self._fault_tick()  # kill point: computed, nothing swapped yet
+            # All side effects live below the last fault point, so a
+            # recovery rerun can never journal or swap twice.
+            if self.recovery_dir is not None:
+                gen, seen = self._lineage.get(name, (None, 0))
+                if gen is None:
+                    gen = last_good_generation(self.recovery_dir, name)
+                    if gen is not None:
+                        seen = len(load_journal(self.recovery_dir, name, gen))
+                if gen is None:
+                    _, gen = save_generation(sess, self.recovery_dir, name)
+                for key, lane in self._lanes.items():
+                    if key[0] == name and lane.source is self._graphs[name]:
+                        lane.lineage = (gen, seen)  # the lane goes stale here
+                journal_delta(self.recovery_dir, name, gen, delta)
+                self._lineage[name] = (gen, seen + 1)
             self._graphs[name] = new
             return new.update_report
 
@@ -419,29 +501,298 @@ class SparseServeEngine:
             return self._guard(body)
 
     def checkpoint_graph(self, name: str) -> int:
-        """Commit a graph's plan as a new generation: needs
-        ``recovery_dir``, which waits for the runtime."""
-        raise NotImplementedError(
-            f"checkpoint_graph needs recovery_dir, {_RUNTIME}, not ported yet"
-        )
+        """Commit graph ``name``'s current plan as a new generation.
+
+        Requires ``recovery_dir``. The commit is crash-safe end to end
+        (:func:`repro_torch.api.plancache.save_generation`): the
+        last-good marker advances only after the archive is complete,
+        and this engine's mid-checkpoint fault point fires *between*
+        archive write and marker advance — the worst possible moment —
+        leaving the previous generation committed. Returns the
+        generation number.
+        """
+        if self.recovery_dir is None:
+            raise RuntimeError("checkpoint_graph requires recovery_dir")
+        if name not in self._graphs:
+            known = ", ".join(sorted(self._graphs)) or "<none>"
+            raise KeyError(f"unknown graph {name!r}; registered: {known}")
+
+        def body():
+            sess = self._session(name)
+            self._fault_tick()  # kill point: before the archive write
+            _, gen = save_generation(
+                sess, self.recovery_dir, name, before_commit=self._fault_tick
+            )
+            self._lineage[name] = (gen, 0)
+            return gen
+
+        with self._lock:
+            return self._guard(body)
+
+    # -- fault handling ----------------------------------------------------
 
     def mark_unit_silent(self, unit: int) -> None:
-        """Heartbeat test hook: needs the runtime, not ported yet."""
-        raise NotImplementedError(f"mark_unit_silent needs {_RUNTIME}, not ported yet")
+        """Test hook: stop beating ``unit``'s heartbeat so it times out
+        and is declared dead at a later tick."""
+        self._silent_units.add(int(unit))
 
     def _fault_tick(self) -> None:
-        """One engine fault point. The JAX package keys its fault
-        injector's schedule on a global counter over *all* fault points
-        the engine passes, in deterministic order: for each ``step()``
+        """One engine fault point. The injector's schedule is keyed on a
+        global counter over *all* fault points the engine passes, in
+        deterministic order — the JAX engine's: for each ``step()``
         tick, one after refill then one after each lane's batched
-        iteration (demand order). The port counts them the same way, so
-        the runtime, once ported, finds the same order."""
+        iteration (demand order); in ``update_graph``, before and after
+        computing the update; in ``checkpoint_graph``, before the
+        archive write and between the write and the marker commit."""
         self._fault_steps += 1
+        if self.fault_injector is not None:
+            self.fault_injector.check(self._fault_steps - 1)
 
     def _guard(self, body):
-        """Run ``body``. With the runtime (not ported yet) this is where
-        a failed unit is recovered and the body rerun."""
-        return body()
+        """Run ``body`` with unit-loss recovery: snapshot all mutable
+        scheduler state, and on :class:`WorkerFailure` restore it,
+        recover the lost unit, and rerun. Free when no injector is
+        wired (heartbeat-detected deaths happen *between* ticks and
+        need no rollback)."""
+        if self.fault_injector is None:
+            return body()
+        for _ in range(self.max_recoveries + 1):
+            snap = self._snapshot()
+            try:
+                return body()
+            except WorkerFailure as failure:
+                self._restore(snap)
+                self._recover_unit_loss(failure.worker)
+        raise RuntimeError(
+            f"gave up after {self.max_recoveries} recoveries in one call"
+        )
+
+    def _snapshot(self) -> dict:
+        """Capture every piece of state a guarded body may mutate.
+
+        Tickets are captured by identity (they are mutable dataclasses
+        shared between the queues, lanes, and callers' hands — callers
+        must observe the rolled-back lifecycle, so we restore fields in
+        place rather than swap objects)."""
+        tickets: Dict[int, tuple] = {}
+
+        def cap(t: Optional[Ticket]) -> None:
+            if t is not None and id(t) not in tickets:
+                tickets[id(t)] = (
+                    t, t.status, t.result, t.error, t.t_start, t.t_finish
+                )
+
+        lanes = {}
+        for key, lane in self._lanes.items():
+            for t in lane.tickets:
+                cap(t)
+            lanes[key] = (
+                lane,
+                lane.stepper.snapshot(),
+                list(lane.tickets),
+                lane.active.copy(),
+                lane.iters_done.copy(),
+                lane.budget.copy(),
+                [list(r) for r in lane.residuals],
+                lane.source,
+                lane.lineage,
+            )
+        for q in self._queues.values():
+            for t in q:
+                cap(t)
+        return {
+            "queues": {tenant: list(q) for tenant, q in self._queues.items()},
+            "served": dict(self._served),
+            "rr_last": self._rr_last,
+            "pending_events": list(self._pending_events),
+            "tickets": tickets,
+            "lanes": lanes,
+            "metrics": copy.deepcopy(self.metrics),
+            "next_tid": self._next_tid,
+        }
+
+    def _restore(self, snap: dict) -> None:
+        self._queues = {
+            tenant: collections.deque(q) for tenant, q in snap["queues"].items()
+        }
+        self._served = dict(snap["served"])
+        self._rr_last = snap["rr_last"]
+        self._pending_events = list(snap["pending_events"])
+        for t, status, result, error, t_start, t_finish in snap["tickets"].values():
+            t.status = status
+            t.result = result
+            t.error = error
+            t.t_start = t_start
+            t.t_finish = t_finish
+        self._lanes = {}
+        for key, (lane, state, tickets, active, iters, budget, residuals, source,
+                  lineage) in snap["lanes"].items():
+            lane.stepper.restore(state)
+            lane.tickets = list(tickets)
+            lane.active = active.copy()
+            lane.iters_done = iters.copy()
+            lane.budget = budget.copy()
+            lane.residuals = [list(r) for r in residuals]
+            lane.source = source
+            lane.lineage = lineage
+            self._lanes[key] = lane
+        self.metrics = snap["metrics"]
+        self._next_tid = snap["next_tid"]
+
+    def _load_last_good(self, name: str, record: dict):
+        """``(session, gen)`` of graph ``name``'s last good generation on
+        the engine's device, its plan materialized, or ``None``."""
+        t0 = time.perf_counter()
+        got = load_last_good(
+            self.recovery_dir, name, executor=self.executor, device=self.device
+        )
+        if got is not None:
+            got[0].materialize()
+        record["load_s"] += time.perf_counter() - t0
+        return got
+
+    def _replay(self, sess, name: str, gen: int, count, record: dict) -> SparseSession:
+        t0 = time.perf_counter()
+        sess = replay_journal(sess, self.recovery_dir, name, gen, count=count)
+        record["replay_s"] += time.perf_counter() - t0
+        return sess
+
+    def _recovered_session(self, name: str, record: dict) -> SparseSession:
+        """The session recovery rebuilds a graph's current lanes from:
+        last good archive + journal replay when this engine persists
+        generations (replay is deterministic, so it reproduces the live
+        update chain bitwise), else the live registered session."""
+        if self.recovery_dir is not None:
+            got = self._load_last_good(name, record)
+            if got is not None:
+                return self._replay(got[0], name, got[1], None, record)
+        return self._session(name)
+
+    def _stale_session(self, lane: _Lane, name: str, record: dict) -> SparseSession:
+        """The matrix a stale lane started on: the last good generation
+        plus the journal prefix its source had seen, while that
+        generation is still the last good one; else (no ``recovery_dir``,
+        or a checkpoint since, which prunes the journal) the lane's own
+        source."""
+        if self.recovery_dir is not None and lane.lineage is not None:
+            got = self._load_last_good(name, record)
+            if got is not None and got[1] == lane.lineage[0]:
+                return self._replay(got[0], name, got[1], lane.lineage[1], record)
+        return self._source_session(lane.source)
+
+    def _remap_onto_survivors(self, sess: SparseSession, record: dict) -> SparseSession:
+        """Re-place the plan's per-unit shard arrays on a mesh sized to
+        the surviving units via the elastic runtime
+        (:func:`make_mesh_any` → :func:`elastic_restart`), over at most
+        as many devices of the engine's kind as this process has, and
+        back to the host. The logical plan is mesh-agnostic, so the round
+        trip is value-preserving — results after recovery stay bitwise —
+        while exercising the placement path a multi-card deployment
+        would take. The rebuilt session computes on the engine's
+        ``device``."""
+        if not self.dead_units:
+            return sess
+        t0 = time.perf_counter()
+        dp = sess.device_plan
+        survivors = max(1, sess.topology.units - len(self.dead_units))
+        width = min(survivors, len(local_devices(self.device)))
+        mesh = make_mesh_any((width,), ("units",), device=self.device)
+        tree = {"tiles": dp.tiles, "tile_row": dp.tile_row, "tile_col": dp.tile_col}
+
+        class _TreeRestore:
+            def restore(self, template, step):
+                return tree, 0
+
+        placed, _ = elastic_restart(_TreeRestore(), None, mesh, lambda key, leaf: P())
+        dp2 = dataclasses.replace(
+            dp,
+            tiles=np.asarray(placed["tiles"]),
+            tile_row=np.asarray(placed["tile_row"]),
+            tile_col=np.asarray(placed["tile_col"]),
+        )
+        out = SparseSession(
+            sess.matrix,
+            sess.topology,
+            sess.partition,
+            dp2,
+            exchange=sess.exchange,
+            selective=sess._selective,
+            executor=sess.executor,
+            device=resolve_device(self.device),
+            tile_transform=sess.tile_transform,
+        )
+        for attr in ("_plan_config", "_t_iter_model"):
+            if hasattr(sess, attr):
+                setattr(out, attr, getattr(sess, attr))
+        record["remap_s"] += time.perf_counter() - t0
+        return out
+
+    def _recover_unit_loss(self, unit: int) -> None:
+        """Unit ``unit`` is gone: rebuild every lane's session, remap it
+        onto the survivors, and rebind the lane's stepper around it with
+        its in-flight state intact (generic numpy snapshot/restore — the
+        stepper contract). A current lane gets its graph's recovered
+        session, which future lanes plan against too; a stale lane gets
+        the matrix it started on (:meth:`_stale_session`) and stays
+        stale. Appends ``{"unit", "load_s", "replay_s", "remap_s",
+        "rebind_s", "total_s"}`` to ``recovery_log``: the last good
+        generation's load, the journal replay, the remap round trip, the
+        steppers' rebuild (a first spmv for some), and all of it."""
+        t0 = time.perf_counter()
+        self.dead_units.add(int(unit))
+        record = dict.fromkeys(("load_s", "replay_s", "remap_s", "rebind_s"), 0.0)
+        current: Dict[str, SparseSession] = {}
+        stale: Dict[int, SparseSession] = {}
+        for key, lane in self._lanes.items():
+            graph, solver, config = key
+            if lane.source is self._graphs[graph]:
+                if graph not in current:
+                    current[graph] = self._remap_onto_survivors(
+                        self._recovered_session(graph, record), record
+                    )
+                sess = current[graph]
+            else:
+                if id(lane.source) not in stale:
+                    stale[id(lane.source)] = self._remap_onto_survivors(
+                        self._stale_session(lane, graph, record), record
+                    )
+                sess = stale[id(lane.source)]
+            t1 = time.perf_counter()
+            state = lane.stepper.snapshot()
+            stepper = STEPPERS.get(solver)(sess, self.batch_slots, **dict(config))
+            stepper.restore(state)
+            lane.stepper = stepper
+            lane.source = sess
+            record["rebind_s"] += time.perf_counter() - t1
+        # Future lanes plan against the recovered session too.
+        for graph, sess in current.items():
+            self._graphs[graph] = sess
+        self.recoveries += 1
+        self.recovery_log.append(
+            {"unit": int(unit), **record, "total_s": time.perf_counter() - t0}
+        )
+
+    def _probe_stragglers(self) -> None:
+        """Feed the per-unit straggler monitors one latency sample per
+        live unit; ``straggler_patience`` consecutive flags demote the
+        unit through the unit-loss recovery path (its shards move to
+        the survivors, its monitor stops being consulted)."""
+        if self.latency_probe is None:
+            return
+        sample = self.latency_probe()
+        self._probe_count += 1
+        demote = []
+        for unit, latency in sorted(sample.items()):
+            if unit in self.dead_units:
+                continue
+            if self._straggler_monitors[unit].observe(self._probe_count, latency):
+                self._straggler_strikes[unit] += 1
+                if self._straggler_strikes[unit] >= self.straggler_patience:
+                    demote.append(unit)
+            else:
+                self._straggler_strikes[unit] = 0
+        for unit in demote:
+            self._recover_unit_loss(unit)
 
     # -- admission ---------------------------------------------------------
 
@@ -734,10 +1085,31 @@ class SparseServeEngine:
         advance every occupied lane by exactly one solver iteration
         (one batched SpMM per lane). Returns whether any lane actually
         stepped — ``False`` means idle, the signal a driver uses to
-        back off. Ticket completion events fire after the tick body
-        commits."""
+        back off.
+
+        Fault-tolerant engines do three more things per tick: units the
+        heartbeat declared dead since the last tick are recovered up
+        front (between-tick loss mutates nothing mid-flight, so no
+        rollback is needed); the tick body runs under :meth:`_guard`
+        (mid-tick :class:`WorkerFailure` → restore + recover + rerun,
+        bitwise-identical because steppers are deterministic); and
+        afterwards the straggler probe may demote a persistently slow
+        unit. Surviving units then heartbeat. Ticket completion events
+        fire only after the guarded body commits."""
         with self._lock:
+            if self.heartbeat is not None:
+                # Live units check in first (a long gap between ticks must
+                # not read as fleet-wide death); only units that stopped
+                # reporting — killed or marked silent — stay stale and trip
+                # the timeout.
+                for unit in self.heartbeat.last_seen:
+                    if unit not in self.dead_units and unit not in self._silent_units:
+                        self.heartbeat.beat(unit)
+                for unit in self.heartbeat.dead_workers():
+                    if unit not in self.dead_units:
+                        self._recover_unit_loss(unit)
             worked = self._guard(self._step_inner)
+            self._probe_stragglers()
             self._fire_events()
             return worked
 

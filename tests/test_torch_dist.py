@@ -23,6 +23,7 @@ from repro_torch.pmvc.plan_device import (
     pack_units,
 )
 from repro_torch.sparse.formats import COO
+from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 UNITS = 4

@@ -4,7 +4,10 @@ and the launch counter rising, a small session end to end against the
 float64 oracle, the single-shard entry points, the serving engine
 bitwise its direct solves, and the plan store: save → load bitwise with
 the first spmv of a lazy load on ``stream``, a patched spmv bitwise the
-cold pack, and a load with no device given taking the card.
+cold pack, and a load with no device given taking the card. Then the
+engine killed at each fault point, bitwise its uninterrupted run, and
+the ``shard_map`` executor on an NCCL group of one rank, within 1e-5 of
+the oracle on the golden schedule.
 
 Marked ``gpu``; each test asks a fixture for the card and skips without
 one. The file imports no JAX, so it also runs where only PyTorch is
@@ -24,6 +27,12 @@ from repro_torch.api import (
     distribute,
     load_session,
 )
+from repro_torch.analysis import (
+    audit_session,
+    golden_signature,
+    schedule_signature,
+    trace_pmvc_step,
+)
 from repro_torch.api.exchange import resolve_exchange
 from repro_torch.core.nezgt import nezgt_partition
 from repro_torch.kernels.attn import attention_plain, attention_variant, flash_attention, mha
@@ -38,7 +47,9 @@ from repro_torch.kernels.spmv import (
     spmm_variant,
     spmv_shard,
 )
+from repro_torch.pmvc.dist import Communicator, make_pmvc_step, make_unit_mesh, pad_x
 from repro_torch.pmvc.plan_device import pack_units
+from repro_torch.runtime import FaultInjector
 from repro_torch.serve import SparseServeEngine, Status
 from repro_torch.sparse.bell import pack_bell, tile_counts
 from repro_torch.sparse.formats import COO
@@ -307,6 +318,83 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 # The reference tests' shapes (simt), then shapes of the wgmma (bf16) and
 # regblock (float32) variants: N not a multiple of 256, 64-row blocks with a
 # ragged N, the granite widths, K not a multiple of 64.
+def _serve_three(sess, tmp_path=None, injector=None):
+    """tests/test_elastic_recovery.py's three requests, drained."""
+    rng = np.random.default_rng(9)
+    seeds, b = rng.random(160).astype(np.float32), rng.random(160).astype(np.float32)
+    eng = SparseServeEngine(batch_slots=4, fault_injector=injector,
+                            recovery_dir=None if tmp_path is None else str(tmp_path))
+    eng.register_graph("g", sess)
+    tickets = [eng.submit("g", "pagerank", payload={"seeds": seeds}, iters=10),
+               eng.submit("g", "pagerank", payload={"seeds": seeds}, iters=6),
+               eng.submit("g", "jacobi", payload={"b": b}, iters=8)]
+    eng.run_until_drained()
+    return eng, tickets
+
+
+@pytest.mark.parametrize("kill_at", range(12))
+def test_kill_point_matrix_on_the_card(cuda, tmp_path, kill_at):
+    """Unit 1 killed at each engine fault point, the engine on the card:
+    the rebuilt sessions are on the card, the results bitwise the
+    uninterrupted run's."""
+    sess = distribute(_diag_heavy_coo(1, n=160, nnz=1400), topology=Topology(2, 2),
+                      combo="NL-HL", exchange="selective", block=32, seed=0)
+    _, base = _serve_three(sess)
+    injector = FaultInjector(schedule={kill_at: 1})
+    eng, got = _serve_three(sess, tmp_path, injector)
+    assert injector.fired == [kill_at] and eng.recoveries == 1
+    assert all(s.device.type == "cuda" for s in eng._graphs.values())
+    for t0, t1 in zip(base, got, strict=True):
+        assert t1.status is Status.DONE, t1.error
+        assert np.array_equal(t0.result.x, t1.result.x)
+        assert t0.result.residuals == t1.result.residuals
+
+
+def test_shard_map_on_an_nccl_group_of_one(cuda, tmp_path):
+    """All units stacked on one rank of an NCCL group: within 1e-5 of
+    the float64 oracle on every exchange, single and batched, the
+    recorded schedule the golden one, every contraction on ``stream``."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        a = banded_coo(3000, 40000, seed=4)
+        x = np.random.default_rng(4).standard_normal((8, 3000)).astype(np.float32)
+        for exchange in ("replicated", "selective", "overlap:2"):
+            sess = distribute(a, topology=Topology(2, 2), combo="NL-HC", exchange=exchange,
+                              executor="shard_map")
+            before = dict(bell_spmm.variant_launches)
+            for xb in (x[0], x):
+                y, y_ref = sess.spmv(xb), sess.spmv(xb, executor="reference")
+                assert np.abs(y - y_ref).max() / np.abs(y_ref).max() < 1e-5, exchange
+            assert bell_spmm.variant_launches["stream"] > before["stream"]
+            assert bell_spmm.variant_launches["simt"] == before["simt"]
+            log = []
+            dp = sess.device_plan
+            step = make_pmvc_step(dp, make_unit_mesh(dp.num_units, comm=Communicator(log=log)),
+                                  selective=sess.selective)
+            step(pad_x(torch.as_tensor(x[0], device=cuda), dp.num_col_blocks, dp.bn))
+            waves = getattr(sess.selective, "waves", 1)
+            assert schedule_signature(log) == golden_signature(exchange, waves)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("exchange", ["replicated", "selective", "overlap:2"])
+def test_schedule_audit_runs_on_the_card(cuda, exchange):
+    """With no device given, the audit records the step on the card (no
+    process group): the golden schedule, through ``stream`` launches."""
+    sess = distribute(banded_coo(3000, 40000, seed=4), topology=Topology(2, 2), combo="NL-HC",
+                      exchange=exchange)
+    before = bell_spmm.variant_launches["stream"]
+    rep = audit_session(sess)
+    assert rep.ok, str(rep)
+    assert bell_spmm.variant_launches["stream"] > before
+    events = trace_pmvc_step(sess.device_plan, sess.selective, batch=8)
+    assert schedule_signature(events) == rep.golden
+
+
 @pytest.mark.parametrize("e,k,n,bm", [(4, 32, 64, 8), (8, 64, 128, 16), (2, 16, 16, 8),
                                       (3, 256, 320, 128), (8, 256, 384, 128),
                                       (4, 512, 192, 64), (32, 1024, 512, 128),

@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` loads neither JAX nor any module
 of the JAX package, its entry points — the plan store's included — run
-on the card unless the caller asks for the CPU, and what the port still
-leaves out says so."""
+on the card unless the caller asks for the CPU, and the parts ported
+last (the fault runtime, the ``shard_map`` executor, the schedule
+audit) are there and refuse what they cannot do."""
 import ast
 import os
 import subprocess
@@ -27,6 +28,7 @@ from repro_torch.api import (
     session_from_numpy,
 )
 from repro_torch.kernels.spmv import bell_spmm, bell_tiles
+from repro_torch.runtime import FaultInjector, Heartbeat
 from repro_torch.serve import SparseServeEngine
 from repro_torch.sparse.generate import random_coo
 
@@ -49,6 +51,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         import repro_torch.serve, repro_torch.serve.driver, repro_torch.serve.sparse
         import repro_torch.api.plancache, repro_torch.sparse.delta
         import repro_torch.analysis, repro_torch.analysis.__main__
+        import repro_torch.analysis.schedule_audit, repro_torch.runtime
+        import repro_torch.runtime.elastic, repro_torch.runtime.fault
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "jaxlib", "repro")
                      or m.startswith(("jax.", "jaxlib.", "repro.")))
@@ -124,7 +128,7 @@ def test_bell_spmm_refuses_other_devices():
 def test_slice_surface():
     assert set(PARTITIONERS.names()) >= {"NL-HL", "NL-HC", "NC-HL", "NC-HC", "nezgt", "hyper"}
     assert set(EXCHANGES.names()) == {"replicated", "selective", "overlap"}
-    assert set(EXECUTORS.names()) == {"reference", "simulate"}
+    assert set(EXECUTORS.names()) == {"reference", "simulate", "shard_map"}
     assert set(SOLVERS.names()) == {
         "power_iteration", "block_power_iteration", "jacobi", "pagerank", "cg",
     }
@@ -132,44 +136,63 @@ def test_slice_surface():
 
 
 def test_unported_parts_say_so(tmp_path):
-    """The JAX package's ``shard_map`` executor is not ported: asking for
-    it, directly or through an archive whose meta names it, raises the
-    registry's ``KeyError`` naming ROADMAP item 6 — nothing substitutes
+    """The ``shard_map`` executor is registered under the JAX package's
+    name, and without a process group it says so: the first ``spmv``
+    raises ``RuntimeError`` — directly, through ``with_executor`` and
+    through an archive whose meta names it — and nothing substitutes
     ``simulate``."""
     a = random_coo(64, 300, seed=1)
     topo = Topology(2, 1)
     sess = distribute(a, topology=topo, device="cpu")
-    with pytest.raises(KeyError, match="unknown executor 'shard_map'.*item 6"):
-        sess.spmv(np.ones(64, np.float32), executor="shard_map")
-    with pytest.raises(KeyError, match="item 6"):
-        sess.with_executor("shard_map")
+    x = np.ones(64, np.float32)
+    with pytest.raises(RuntimeError, match="no torch.distributed process group"):
+        sess.spmv(x, executor="shard_map")
+    with pytest.raises(RuntimeError, match="never runs the units on one device"):
+        sess.with_executor("shard_map").spmv(x)
     path = distribute(a, topology=topo, device="cpu", executor="shard_map").save(
         str(tmp_path / "plan.npz"))
     loaded = SparseSession.load(path, device="cpu")
     assert loaded.executor == "shard_map"
-    with pytest.raises(KeyError, match="item 6"):
-        loaded.spmv(np.ones(64, np.float32))
+    with pytest.raises(RuntimeError, match="process group"):
+        loaded.spmv(x)
+    assert np.array_equal(loaded.spmv(x, executor="simulate"), sess.spmv(x))
 
 
 def test_unported_serving_parts_say_so(tmp_path):
-    """What the serving path still leaves out raises, naming ROADMAP item
-    4: the fault-tolerance wiring and ``checkpoint_graph``, which needs
-    ``recovery_dir``. Graphs by path and ``update_graph`` are ported."""
+    """The engine takes the fault-tolerance wiring; what still needs an
+    argument says so: ``checkpoint_graph`` without a ``recovery_dir``
+    raises, as in the JAX package."""
     sess = distribute(random_coo(64, 300, seed=2), topology=Topology(2, 1), device="cpu")
-    for kw in ({"fault_injector": object()}, {"heartbeat": object()},
-               {"recovery_dir": "recovery"}, {"latency_probe": dict}):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            SparseServeEngine(**kw)
-    eng = SparseServeEngine(device="cpu")
+    eng = SparseServeEngine(
+        device="cpu", fault_injector=FaultInjector(), heartbeat=Heartbeat(2),
+        recovery_dir=str(tmp_path / "recovery"), latency_probe=dict,
+        straggler_factor=4.0, straggler_patience=2, max_recoveries=1,
+    )
     eng.register_graph("g", sess)
     eng.register_graph("p", sess.save(str(tmp_path / "p.npz")))
     assert eng.graphs() == ["g", "p"]
-    with pytest.raises(NotImplementedError, match="recovery_dir.*item 4"):
-        eng.checkpoint_graph("g")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eng.mark_unit_silent(0)
+    assert eng.checkpoint_graph("g") == 0
+    eng.mark_unit_silent(0)
+    assert (eng.dead_units, eng.recoveries, eng.recovery_log) == (set(), 0, [])
+    with pytest.raises(RuntimeError, match="requires recovery_dir"):
+        SparseServeEngine(device="cpu").checkpoint_graph("g")
     with pytest.raises(TypeError, match="SparseSession or a plan path"):
         eng.register_graph("h", object())
+
+
+@pytest.mark.parametrize("module", ["repro_torch.runtime", "repro_torch.api.executors",
+                                    "repro_torch.analysis.schedule_audit"])
+def test_last_ported_parts_import_alone_without_jax(module):
+    """The fault runtime, the executor registry with ``shard_map`` and
+    the schedule audit, each imported alone in a fresh interpreter, load
+    no JAX and no module of the JAX package."""
+    code = (f"import sys, {module}\n"
+            "print(','.join(sorted(m for m in sys.modules if m.split('.')[0] "
+            "in ('jax', 'jaxlib', 'repro'))))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    assert out.stdout.strip() == ""
 
 
 def test_plan_store_without_device_raises(monkeypatch, tmp_path):

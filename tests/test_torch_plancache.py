@@ -6,8 +6,9 @@ First the case-for-case port of ``tests/test_plancache.py`` and
 exactly through the ``.npz``, so ``spmv`` returns bit-identical results
 on every executor, single and batched, lazy and eager, v1 and v2 — and
 the cache key separates any two planning runs that could differ. (The
-reference's ``shard_map`` warm-start subprocess case waits for the
-multi-device executor, ROADMAP.md Queue 1 item 6.)
+reference's ``shard_map`` warm-start subprocess case has its
+counterpart in ``tests/test_torch_shard_exec.py``, which loads archives
+naming ``shard_map`` in gloo process groups.)
 
 Then the cases across packages: the same numpy COO planned by the JAX
 package and by the port gives the same :func:`plan_key`, archives whose
@@ -15,8 +16,9 @@ members and ``meta.json`` are equal member for member, and archives that
 load in the other package, where the loaded session's ``spmv`` is
 bitwise the loading package's own session's. An archive whose meta
 names the JAX package's ``shard_map`` executor keeps that name in the
-port, which raises at the first ``spmv`` naming ROADMAP item 6 unless
-the load overrides the executor.
+port; outside a ``torch.distributed`` process group its first ``spmv``
+raises, unless the load overrides the executor
+(``tests/test_torch_shard_exec.py`` runs such an archive in a group).
 """
 import hashlib
 import os
@@ -33,6 +35,7 @@ from repro.sparse.formats import COO as JxCOO
 from repro_torch.api import SparseSession, Topology, distribute, hydrate_session
 from repro_torch.api.plancache import plan_key
 from repro_torch.sparse.generate import banded_coo, powerlaw_coo, random_coo
+from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 TOPO = Topology(2, 2)
 CPU = "cpu"
@@ -444,19 +447,19 @@ def test_cache_dir_shared_with_jax(shared, tmp_path):
 
 def test_shard_map_named_archive(shared, tmp_path):
     """The meta keeps the JAX package's ``shard_map``: nothing substitutes
-    ``simulate``; the first spmv raises naming ROADMAP item 6, and an
+    ``simulate``; outside a process group the first spmv raises, and an
     ``executor=`` override loads a session bitwise the port's own."""
     a, x, _ = shared
     j, p = _both(a, "selective", executor="shard_map")
     path = j.save(str(tmp_path / "sharded.npz"))
     loaded = SparseSession.load(path, device=CPU)
     assert loaded.executor == "shard_map"
-    with pytest.raises(KeyError, match="unknown executor 'shard_map'.*item 6"):
+    with pytest.raises(RuntimeError, match="no torch.distributed process group"):
         loaded.spmv(x)
-    with pytest.raises(KeyError, match="item 6"):
+    with pytest.raises(RuntimeError, match="process group"):
         hydrate_session(path, device=CPU).spmv(x)
-    with pytest.raises(KeyError, match="item 6"):
-        loaded.with_executor("shard_map")
+    with pytest.raises(RuntimeError, match="process group"):
+        loaded.with_executor("shard_map").spmv(x)
     assert loaded.verify("strict").ok  # the linter runs no executor
     over = SparseSession.load(path, executor="simulate", device=CPU)
     assert np.array_equal(over.spmv(x), p.spmv(x, executor="simulate"))

@@ -1,13 +1,11 @@
 """Driver tier of the port: the self-driving tick loop under real
-concurrency, on CPU tensors — the eight cases of
-``tests/test_serve_driver.py`` without its fault-injection cells, which
-wait for the runtime.
+concurrency, on CPU tensors — the cases of ``tests/test_serve_driver.py``.
 
 What the caller-ticked suites cannot cover: ``submit()`` racing a
-driver thread mid-tick, ``drain()`` vs ``stop()`` ordering, restart and
-the context-manager shutdown path — all while the engine's bitwise
-parity contract keeps holding. Results must never depend on who owns
-the tick cadence.
+driver thread mid-tick, ``drain()`` vs ``stop()`` ordering, restart,
+the context-manager shutdown path and fault recovery inside the driver
+thread — all while the engine's bitwise parity contract keeps holding.
+Results must never depend on who owns the tick cadence.
 """
 import threading
 
@@ -15,8 +13,10 @@ import numpy as np
 import pytest
 
 from repro_torch.api import Topology, distribute
+from repro_torch.runtime.fault import FaultInjector
 from repro_torch.serve import ServeDriver, SparseServeEngine, Status
 from repro_torch.sparse.formats import COO
+from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 N = 96
 TOPO = Topology(2, 2)
@@ -201,3 +201,48 @@ def test_submit_while_ticking_from_many_threads(session):
         t, seeds = bucket[0]
         ref = session.solve("pagerank", seeds=seeds[None], iters=5)
         assert np.array_equal(t.result.x, ref.x[0])
+
+
+# ---------------------------------------------------------------------------
+# Fault-injection recovery inside the driver thread
+
+
+@pytest.mark.parametrize("kill_at", [0, 3, 7])
+def test_fault_recovery_under_driver_is_bitwise(session, tmp_path, kill_at):
+    """A unit dies at an engine fault point while the *driver thread*
+    owns the tick — the guarded body recovers in-thread and the drained
+    results are bitwise those of an uninterrupted caller-ticked run."""
+    rng = np.random.default_rng(7)
+    payloads = [
+        ("pagerank", {"seeds": rng.random(N).astype(np.float32)}, 10),
+        ("pagerank", {"seeds": rng.random(N).astype(np.float32)}, 6),
+        ("jacobi", {"b": rng.random(N).astype(np.float32)}, 8),
+    ]
+
+    def run(**kw):
+        eng = SparseServeEngine(
+            batch_slots=4, max_queue=16, executor="simulate", device="cpu", **kw
+        )
+        eng.register_graph("g", session)
+        return eng, [
+            eng.submit("g", solver, payload=p, iters=iters)
+            for solver, p, iters in payloads
+        ]
+
+    base_eng, base = run()
+    base_eng.run_until_drained()
+    assert all(t.status is Status.DONE for t in base)
+
+    injector = FaultInjector(schedule={kill_at: 1})
+    eng, got = run(fault_injector=injector, recovery_dir=str(tmp_path))
+    with ServeDriver(eng) as driver:
+        for t in got:
+            assert t.wait(WAIT), (t.status, t.error)
+        driver.drain(timeout=WAIT)
+    assert eng.recoveries >= 1 and 1 in eng.dead_units
+    for t0, t1 in zip(base, got, strict=True):
+        assert t1.status is Status.DONE, (t1.status, t1.error)
+        assert np.array_equal(t0.result.x, t1.result.x)
+        assert t0.result.residuals == t1.result.residuals
+        assert t0.result.iters_run == t1.result.iters_run
+    assert eng.metrics.completed == len(got)

@@ -36,6 +36,7 @@ from repro_torch.serve import (
     percentile,
 )
 from repro_torch.sparse.formats import COO
+from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 N = 96
 TOPO = Topology(2, 2)

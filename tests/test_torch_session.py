@@ -13,6 +13,7 @@ import repro_torch.api as pt
 from repro.sparse.formats import coo_from_dense
 from repro.sparse.generate import PAPER_SUITE, generate
 from repro_torch.sparse.formats import COO as PtCOO
+from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 TOPO = (2, 2)
 EXCHANGES = ("replicated", "selective", "overlap", "overlap:2")

@@ -8,7 +8,7 @@ patched ``DevicePlan`` and exchange-plan arrays are bitwise the JAX
 package's, and the :class:`UpdateReport` is equal field for field — on
 value-only and structural patches, chained patches, the patch-vs-replan
 rule and forced replans. (The reference's ``shard_map`` subprocess case
-waits for the multi-device executor, ROADMAP.md Queue 1 item 6.)
+runs in ``tests/test_torch_shard_exec.py``, on gloo process groups.)
 
 What the reference's tier holds, inside the port:
 
@@ -47,6 +47,7 @@ from repro_torch.api.session import PATCH_TOUCH_LIMIT, REPLAN_FM_KW
 from repro_torch.pmvc.plan_device import pack_units
 from repro_torch.sparse.formats import COO, csr_from_coo
 from repro_torch.sparse.generate import PAPER_SUITE, generate, random_coo
+from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 TOPO = Topology(2, 2)
 BLOCK = 32

@@ -20,6 +20,7 @@ from repro.sparse.formats import COO as JxCOO
 from repro_torch.api import STEPPERS, BatchStepper, Topology, distribute, register_stepper
 from repro_torch.serve import SparseServeEngine, Status
 from repro_torch.sparse.formats import COO
+from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 N = 96
 SLOTS = 4
