@@ -103,7 +103,29 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    counter, set to 0 just before its path, must have risen on it, and
    so must the per-variant counts of the tensor-core variants (bf16) and
    of the register-blocked ones (f32), never those of ``simt``;
-10. **times** — each kernel's time per launch at its path's shapes
+10. **lm serve** — the language-model serving path (``repro_torch.models``,
+   ``repro_torch.serve.engine``), which calls no kernel of the port (the
+   three launch counters, set to 0 at its start, must stay 0): each
+   family at ``.reduced()`` size in float32 (qwen3-1.7b, h2o-danube-1.8b
+   over a ring that wraps twice, mamba2-2.7b, hymba-1.5b, llava-next-34b
+   with frontend embeddings), the same weights on the CPU and, through
+   ``lm_to_numpy`` → ``lm_from_numpy``, on the card: forward and every
+   decode step within 1e-5 of the CPU's; then qwen3-1.7b at full width
+   (28 layers, d_model 2048, vocab 151,936), weights from ``--seed`` on
+   the card: teacher-forced forward against step-by-step decode on 2
+   prompts of 64 tokens, within 1e-4 in float32 (bf16 printed, with its
+   top-1 agreement with float32); then ``ServeEngine(batch_slots=8,
+   max_len=256)`` in bf16 over 16 requests of 16–128 prompt tokens from
+   ``SyntheticStream`` and ``--seed``, 32 new tokens each (2 waves),
+   printing tick wall, prompt-only against generating ticks, generated
+   tokens/s, requests/s, time to first token, the device's busy time
+   per tick by ``torch.profiler`` and its idle share, the decode step's
+   byte bound and device memory; last a check wave of 8 equal prompts
+   of 16 tokens through an engine of ``max_len`` 48 (``greedy_generate``'s
+   cache length), every request bitwise ``greedy_generate`` on the same
+   batch, and its agreement with batch-1 ``greedy_generate`` printed as
+   a measurement;
+11. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, the ``simt`` variant's time
    at the same shapes (the kernels of the previous slices, compared within
@@ -120,6 +142,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -206,6 +229,27 @@ H2O = {"heads": 32, "kv_heads": 8, "head_dim": 80, "window": 4096, "batch": 1,
        "seq": 8192}
 GMM_BM = 128
 ATTN_TILE = 128  # bq = bkv
+# The [lm serve] phase. Card against CPU: each family of the LM serving path
+# at .reduced() size in float32, the sequence lengths of
+# tests/test_torch_lm_models.py (h2o's 40 positions wrap its ring of window
+# + 1 = 17 slots twice; hymba's 24 reach past its window of 16).
+LM_FAMILIES = (("qwen3-1.7b", 16), ("h2o-danube-1.8b", 40), ("mamba2-2.7b", 16),
+               ("hymba-1.5b", 24), ("llava-next-34b", 16))
+LM_TOL_CARD = 1e-5  # card vs CPU, max |d| / max |logit|
+# Full width: src/repro/configs/qwen3_1_7b.py, all 28 layers, random weights
+# from --seed; forward against step-by-step decode on 2 prompts of 64 tokens
+# (tests/test_models_smoke.py:68-86 checks the same property).
+LM_ARCH = "qwen3-1.7b"
+LM_PROMPTS, LM_PROMPT_LEN = 2, 64
+LM_TOL_F32 = 1e-4  # forward vs decode, max |d| / max |logit|, float32
+# The engine, bf16: 16 requests of 16-128 prompt tokens and 32 new tokens
+# through 8 slots (2 waves). Then a check wave of 8 equal prompts of 16
+# tokens through an engine whose max_len is 16 + 32, so that its cache has
+# greedy_generate's length: the same shapes, the same arithmetic.
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 8, 256, 16, 32
+LM_PROMPT_RANGE = (16, 128)
+LM_CHECK_LEN = 16
+LM_PROFILED_TICKS = 3
 
 
 def log(msg: str) -> None:
@@ -1553,7 +1597,256 @@ def phase_lm_attention(device) -> dict:
             "runs": runs}
 
 
-# -- phase 10: times ---------------------------------------------------------
+# -- phase 10: lm serve ------------------------------------------------------
+
+
+def lm_weight_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def lm_card_vs_cpu(seed: int, device) -> None:
+    """Each family at reduced size: the same float32 weights on the CPU and,
+    through lm_to_numpy -> lm_from_numpy, on the card; forward and every
+    decode step within LM_TOL_CARD of the CPU's."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import build, lm_from_numpy, lm_to_numpy
+
+    for arch, s in LM_FAMILIES:
+        cfg = get_arch(arch).reduced()
+        model = build(cfg)
+        cpu = model.init(torch.Generator().manual_seed(seed), device="cpu")
+        card = lm_from_numpy(cfg, lm_to_numpy(cpu), device=device)
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)}
+        if cfg.frontend:
+            batch["frontend_embeds"] = rng.standard_normal((2, 8, cfg.d_model)).astype(
+                np.float32)
+        with torch.no_grad():
+            fwd = scaled_err(model.forward(card, batch)[0].cpu(), model.forward(cpu, batch)[0])
+        check(fwd <= LM_TOL_CARD, f"[lm serve] {arch} forward card vs CPU {fwd:.2e}")
+        states = [model.init_state(p, batch, max_len=s) for p in (card, cpu)]
+        dec = 0.0
+        for t in range(s):
+            tok = batch["tokens"][:, t : t + 1]
+            (lg_card, states[0]), (lg_cpu, states[1]) = (
+                model.decode_step(p, tok, st) for p, st in zip((card, cpu), states))
+            check(lg_card.device.type == "cuda", f"[lm serve] {arch} decoded off the card")
+            dec = max(dec, scaled_err(lg_card.cpu(), lg_cpu))
+        check(dec <= LM_TOL_CARD, f"[lm serve] {arch} decode card vs CPU {dec:.2e}")
+        log(f"[lm serve] {arch} ({cfg.family}, reduced, float32): card vs CPU, forward "
+            f"{fwd:.3e}, {s} decode steps {dec:.3e} (<= {LM_TOL_CARD})")
+
+
+def lm_forward_vs_decode(model, params, tokens) -> tuple:
+    """(teacher-forced logits, step-by-step logits, ms a decode step)."""
+    with torch.no_grad():
+        full, _ = model.forward(params, {"tokens": tokens})
+    state = model.init_state(params, {"tokens": tokens}, max_len=tokens.shape[1])
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(tokens.shape[1]):
+        lg, state = model.decode_step(params, tokens[:, t : t + 1], state)
+        outs.append(lg)
+    step = torch.stack(outs, dim=1)
+    torch.cuda.synchronize()
+    return full, step, (time.perf_counter() - t0) / tokens.shape[1] * 1e3
+
+
+def lm_requests(cfg, seed: int) -> list:
+    """LM_REQUESTS prompts of LM_PROMPT_RANGE tokens from SyntheticStream."""
+    from repro_torch.data import DataConfig, SyntheticStream
+
+    lo, hi = LM_PROMPT_RANGE
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lo, hi + 1, LM_REQUESTS)
+    toks = SyntheticStream(DataConfig(cfg.vocab_size, hi, LM_REQUESTS, seed=seed)).batch_at(0)
+    return [toks[i, :n] for i, n in enumerate(lengths)]
+
+
+def phase_lm_serve(card: dict, seed: int, device) -> None:
+    from repro_torch.config import get_arch
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels.attn import flash_attention
+    from repro_torch.kernels.gmm import grouped_matmul
+    from repro_torch.kernels.spmv import bell_spmm
+    from repro_torch.models import build
+    from repro_torch.models.common import count_params
+    from repro_torch.serve import Request, ServeEngine, greedy_generate
+
+    where = card["smi"]
+    t_phase = time.perf_counter()
+    counters = (bell_spmm, grouped_matmul, flash_attention)
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. Card against CPU, every family of the slice, at reduced size.
+    lm_card_vs_cpu(seed, device)
+    parts = {"card vs CPU": time.perf_counter() - t_phase}
+
+    # 2. Full width: float32 forward vs decode (checked), bf16 (printed).
+    cfg16 = get_arch(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    model32, model16 = build(cfg32), build(cfg16)
+    tokens = torch.as_tensor(SyntheticStream(
+        DataConfig(cfg16.vocab_size, LM_PROMPT_LEN, LM_PROMPTS, seed=seed)).batch_at(0),
+        device=device)
+    t0 = time.perf_counter()
+    params32 = model32.init(torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"[lm serve] {LM_ARCH} full width: {cfg16.num_layers} layers, d_model "
+        f"{cfg16.d_model}, {cfg16.num_heads} heads (kv {cfg16.num_kv_heads}), head_dim "
+        f"{cfg16.hd}, d_ff {cfg16.d_ff}, vocab {cfg16.vocab_size}; "
+        f"{count_params(params32) / 1e9:.4f} G parameters, float32 "
+        f"{lm_weight_bytes(params32) / 1e9:.3f} GB drawn from --seed on the card in "
+        f"{init_s:.2f} s")
+    full32, step32, ms32 = lm_forward_vs_decode(model32, params32, tokens)
+    err32 = scaled_err(step32, full32)
+    check(bool(torch.isfinite(full32).all()) and full32.shape == (
+        LM_PROMPTS, LM_PROMPT_LEN, cfg16.vocab_size), "[lm serve] float32 logits misshapen")
+    check(err32 <= LM_TOL_F32, f"[lm serve] float32 forward vs decode {err32:.2e}")
+    del params32
+    torch.cuda.empty_cache()
+    params16 = model16.init(torch.Generator(device=device).manual_seed(seed))
+    full16, step16, ms16 = lm_forward_vs_decode(model16, params16, tokens)
+    err16 = scaled_err(step16.float(), full16.float())
+    top1 = float((step16.argmax(-1) == step32.argmax(-1)).float().mean())
+    log(f"[lm serve] {LM_ARCH} {LM_PROMPTS} prompts x {LM_PROMPT_LEN} tokens: forward vs "
+        f"decode float32 {err32:.3e} (<= {LM_TOL_F32}), bf16 {err16:.3e} (not checked); bf16 "
+        f"decode's top-1 equal to float32's at {top1:.1%} of {step16.shape[0] * step16.shape[1]}"
+        f" positions; a decode step at B={LM_PROMPTS}: float32 {ms32:.2f} ms, bf16 {ms16:.2f} "
+        f"ms (host clock) [{where}]")
+    del full32, step32, full16, step16
+    parts["full width"] = time.perf_counter() - t_phase - sum(parts.values())
+
+    # 3. The engine at full width, bf16.
+    prompts = lm_requests(cfg16, seed)
+    ticks, generated, ttft, wave_of = [], [], {}, {}
+    eng = ServeEngine(model16, params16, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    resident = torch.cuda.memory_allocated()
+    full_width_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reqs = [Request(rid=i, prompt=p, max_new=LM_NEW) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    waves = 0
+    while len(eng.completed) < LM_REQUESTS:
+        check(len(ticks) < 10_000, "[lm serve] the engine did not drain")
+        out_before = sum(len(r.out) for r in reqs)
+        t1 = time.perf_counter()
+        eng.step()
+        now = time.perf_counter()
+        ticks.append(now - t1)
+        generated.append(sum(len(r.out) for r in reqs) - out_before)
+        waves += eng.state.pos == 1  # this tick opened a wave
+        for r in eng.active:
+            if r is not None:
+                wave_of.setdefault(r.rid, waves)
+                if r.out and r.rid not in ttft:
+                    ttft[r.rid] = now - t0
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    parts["engine"] = time.perf_counter() - t_phase - sum(parts.values())
+    check(all(r.done and len(r.out) == LM_NEW for r in reqs),
+          "[lm serve] not every request finished with its tokens")
+    check(all(0 <= t < cfg16.vocab_size for r in reqs for t in r.out),
+          "[lm serve] a generated token is outside the vocabulary")
+
+    # The device's busy time per tick: torch.profiler (device activity only)
+    # over LM_PROFILED_TICKS generating ticks of a fresh wave, the device
+    # events' durations summed (one stream: they do not overlap).
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_eng = ServeEngine(model16, params16, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    for i in range(LM_SLOTS):
+        prof_eng.submit(Request(rid=i, prompt=prompts[i][:4], max_new=LM_NEW))
+    for _ in range(5):
+        prof_eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(LM_PROFILED_TICKS):
+            prof_eng.step()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3 / LM_PROFILED_TICKS
+    kernels = len(on_device) / LM_PROFILED_TICKS
+    parts["profiler"] = time.perf_counter() - t_phase - sum(parts.values())
+    del prof_eng
+
+    tick_ms = np.asarray(ticks) * 1e3
+    gen_ms = tick_ms[np.asarray(generated) > 0]
+    pre_ms = tick_ms[np.asarray(generated) == 0]
+    tokens_out = sum(len(r.out) for r in reqs)
+    first = np.asarray([ttft[r.rid] for r in reqs]) * 1e3
+    by_wave = {w: first[[wave_of[r.rid] == w for r in reqs]] for w in sorted(set(wave_of.values()))}
+    weight_bytes = lm_weight_bytes(params16)
+    kv_bytes = (cfg16.num_layers * LM_SLOTS * LM_MAX_LEN * cfg16.num_kv_heads * cfg16.hd
+                * 2 * 2)
+    bound_ms = (weight_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
+    busy = (f"{busy_ms:.3f} ms by torch.profiler ({LM_PROFILED_TICKS} ticks, {kernels:.0f} "
+            f"kernels a tick), idle share {1.0 - busy_ms / np.median(gen_ms):.1%} of the "
+            f"generating p50" if busy_ms > 0 else "not measured (no device time in the trace)")
+    log(f"[lm serve] engine bf16, batch_slots {LM_SLOTS}, max_len {LM_MAX_LEN}: "
+        f"{LM_REQUESTS} requests (prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens, {LM_NEW} new each) in {waves} waves, "
+        f"{len(ticks)} ticks ({len(pre_ms)} prompt-only, {len(gen_ms)} generating), "
+        f"{wall:.2f} s; {tokens_out / wall:.1f} generated tokens/s, "
+        f"{LM_REQUESTS / wall:.2f} requests/s [{where}]")
+    log(f"[lm serve] tick wall mean {tick_ms.mean():.3f} ms, p50 "
+        f"{np.percentile(tick_ms, 50):.3f}, p99 {np.percentile(tick_ms, 99):.3f}; prompt-only "
+        f"ticks p50 {np.percentile(pre_ms, 50) if len(pre_ms) else float('nan'):.3f} ms, "
+        f"generating p50 {np.percentile(gen_ms, 50):.3f} ms; time to first token p50 "
+        + ", ".join(f"wave {w} {np.percentile(v, 50):.1f} ms (max {v.max():.1f})"
+                    for w, v in by_wave.items()) + f" [{where}]")
+    log(f"[lm serve] device busy per generating tick {busy}; the decode step's byte bound "
+        f"{bound_ms:.3f} ms "
+        f"(weights {weight_bytes / 1e9:.3f} GB + KV {kv_bytes / 1e9:.3f} GB over "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s) [{where}]")
+    log(f"[lm serve] device memory: {base / 2**20:.0f} MiB allocated before the phase; peak "
+        f"{(full_width_peak - base) / 2**20:.0f} MiB above it through the full-width checks; "
+        f"{(resident - base) / 2**20:.0f} MiB of bf16 weights resident for the engine, whose "
+        f"peak is {(peak - resident) / 2**20:.0f} MiB above them [{where}]")
+
+    # 4. The check wave: 8 equal prompts, bitwise greedy_generate on the
+    # same batch; batch-1 agreement as a measurement.
+    check_len = LM_CHECK_LEN
+    same = SyntheticStream(DataConfig(cfg16.vocab_size, check_len, LM_SLOTS,
+                                      seed=seed + 1)).batch_at(0)
+    wave = [Request(rid=100 + i, prompt=same[i], max_new=LM_NEW) for i in range(LM_SLOTS)]
+    eng = ServeEngine(model16, params16, batch_slots=LM_SLOTS, max_len=check_len + LM_NEW)
+    for r in wave:
+        eng.submit(r)
+    eng.run_until_drained()
+    check(eng.ticks == check_len + LM_NEW - 1, f"[lm serve] the check wave took {eng.ticks} ticks")
+    want = greedy_generate(model16, params16, same, LM_NEW)
+    parts["check wave"] = time.perf_counter() - t_phase - sum(parts.values())
+    for i, r in enumerate(wave):
+        check(np.array_equal(np.asarray(r.out), want[i]),
+              f"[lm serve] request {r.rid} is not bitwise greedy_generate on its batch")
+    singles = [greedy_generate(model16, params16, same[i:i + 1], LM_NEW)[0]
+               for i in range(LM_SLOTS)]
+    tok_eq = float(np.mean([np.mean(np.asarray(r.out) == s) for r, s in zip(wave, singles)]))
+    req_eq = sum(np.array_equal(np.asarray(r.out), s) for r, s in zip(wave, singles))
+    log(f"[lm serve] check wave: {LM_SLOTS} prompts of {check_len} tokens, every request "
+        f"bitwise greedy_generate on the same batch; against batch-1 greedy_generate "
+        f"(a measurement): {req_eq} of {LM_SLOTS} requests and {tok_eq:.1%} of tokens equal")
+
+    parts["batch-1 decodes"] = time.perf_counter() - t_phase - sum(parts.values())
+    launched = {k.__name__: k.launches for k in counters}
+    check(not any(launched.values()), f"[lm serve] a kernel of the port ran: {launched}")
+    log(f"[lm serve] phase {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f"); kernel launches {launched}: "
+        f"the LM path calls no kernel of the port, as the reference's calls no Pallas kernel")
+    del eng, params16
+    torch.cuda.empty_cache()
+
+
+# -- phase 11: times ---------------------------------------------------------
 
 
 def bsr_library_ms(bt, xb, reps):
@@ -1878,6 +2171,7 @@ def main() -> int:
     dist_run = phase_dist(main_path, card, device)
     moe = phase_lm_moe(device)
     attn = phase_lm_attention(device)
+    phase_lm_serve(card, args.seed, device)
     rows = phase_times(main_path, card, device)
     gmm_rows = phase_times_gmm(moe, card)
     attn_rows = phase_times_attn(attn, card)

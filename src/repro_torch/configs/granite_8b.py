@@ -1,0 +1,22 @@
+"""granite-8b — IBM Granite 8B code model (llama-arch, GQA kv=8).
+
+[arXiv:2405.04324; hf]
+36L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=49152.
+"""
+from repro_torch.config import ArchConfig, register_arch
+
+CONFIG = register_arch(
+    ArchConfig(
+        name="granite-8b",
+        family="dense",
+        num_layers=36,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=14336,
+        vocab_size=49152,
+        sub_quadratic=False,
+        source="arXiv:2405.04324",
+    )
+)

@@ -1,0 +1,137 @@
+"""Shared model building blocks: weights as a module, math as functions.
+
+The JAX package keeps parameters as nested dicts and computes with pure
+functions over them. The port keeps the functions and puts the weights
+in :class:`Params`, an ``nn.Module`` whose tensors are parameters and
+whose nested dicts and lists are submodules, so ``p["wq"]`` and
+``p.wq`` read the same weight as the reference's ``p["wq"]``. The casts
+follow the reference exactly (``rms_norm`` in float32, ``rope``'s angles
+in float32), because the card has no JAX to catch a reordering.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = [
+    "Params",
+    "rms_norm",
+    "rope",
+    "softplus",
+    "dense_init",
+    "embed_init",
+    "cross_entropy",
+    "count_params",
+]
+
+
+class Params(nn.Module):
+    """Named weights: each tensor becomes a parameter, each mapping a
+    nested ``Params`` and each list an ``nn.ModuleList`` of them.
+
+    Parameters are made with ``requires_grad=False``: the port serves and
+    does not train yet, and a decode step writes its caches in place,
+    which autograd must not record.
+    """
+
+    def __init__(self, entries: Mapping[str, object]):
+        super().__init__()
+        for name, value in entries.items():
+            if isinstance(value, torch.Tensor):
+                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+            elif isinstance(value, Mapping):
+                self.add_module(name, Params(value))
+            elif isinstance(value, (list, tuple)):
+                self.add_module(name, nn.ModuleList(
+                    v if isinstance(v, nn.Module) else Params(v) for v in value))
+            elif isinstance(value, nn.Module):
+                self.add_module(name, value)
+            else:
+                raise TypeError(f"{name}: {type(value).__name__} is not a weight")
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def get(self, name: str, default=None):
+        return getattr(self, name) if name in self else default
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
+
+
+def rope(
+    x: torch.Tensor,  # [..., S, H, hd]
+    positions: torch.Tensor,  # [..., S] integer
+    theta: float = 1e4,
+) -> torch.Tensor:
+    """Rotary position embedding on the last (head) dimension. The
+    products of ``x`` (any float type) with the float32 ``cos`` and
+    ``sin`` promote to float32 before the cast back, as in JAX."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta**exps)  # [half]
+    angles = positions[..., None].float() * freqs  # [..., S, half]
+    cos = torch.cos(angles)[..., None, :]  # [..., S, 1, half]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` at every x.
+    ``torch.nn.functional.softplus`` returns x itself above its threshold
+    of 20, which is not the reference's function there."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def dense_init(
+    generator: torch.Generator,
+    shape: Sequence[int],
+    fan_in: Optional[int] = None,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+) -> torch.Tensor:
+    """Normal(0, 1/fan_in) drawn in float32 on the generator's device,
+    then cast to ``dtype`` and placed on ``device``."""
+    fan_in = fan_in if fan_in is not None else shape[0]
+    std = 1.0 / np.sqrt(fan_in)
+    w = torch.randn(tuple(shape), generator=generator, device=generator.device,
+                    dtype=torch.float32) * std
+    return w.to(device=device or generator.device, dtype=dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=generator, device=generator.device,
+                    dtype=torch.float32) * 0.02
+    return w.to(device=device or generator.device, dtype=dtype)
+
+
+def cross_entropy(
+    logits: torch.Tensor,  # [B, S, V] (any float dtype)
+    labels: torch.Tensor,  # [B, S] integer
+    mask: Optional[torch.Tensor] = None,  # [B, S] float
+) -> torch.Tensor:
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def count_params(params: nn.Module) -> int:
+    return int(sum(p.numel() for p in params.parameters()))

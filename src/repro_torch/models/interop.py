@@ -1,0 +1,104 @@
+"""Carry language-model weights across packages as numpy arrays.
+
+The JAX package's parameters are a pytree of nested dicts whose
+``layers`` entry stacks every layer's weights on a leading ``[L, ...]``
+axis. ``jax.tree.map(np.asarray, params)`` turns them into numpy, and
+:func:`lm_from_numpy` builds the port's module from that tree;
+:func:`lm_to_numpy` gives the tree back. The tests match the two
+packages through these functions, not by matching their random number
+generators.
+
+numpy has no bfloat16 of its own: a bfloat16 array of the JAX package
+(``ml_dtypes``) is read through float32, which holds it exactly, and
+:func:`lm_to_numpy` returns a bfloat16 weight as float32 — the same
+values, so a tree survives ``lm_to_numpy(lm_from_numpy(cfg, tree))``
+value for value, and bit for bit when it is float32.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.config import ArchConfig
+from repro_torch.models.common import Params
+from repro_torch.models.ssm import FLOAT32_PARAMS
+from repro_torch.models.transformer import _dtype, check_ported, padded_vocab
+
+__all__ = ["params_from_numpy", "lm_from_numpy", "lm_to_numpy"]
+
+
+def _tensor(name: str, arr, dtype: torch.dtype, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    target = torch.float32 if name in FLOAT32_PARAMS else dtype
+    return torch.tensor(arr).to(device=device, dtype=target)
+
+
+def params_from_numpy(tree: Mapping[str, Any], dtype: torch.dtype, device) -> Params:
+    """A :class:`Params` module from a nested dict of arrays (lists of
+    dicts become module lists), each weight in ``dtype`` on ``device``
+    except the SSD's float32 parameters."""
+
+    def convert(name, value):
+        if isinstance(value, Mapping):
+            return {k: convert(k, v) for k, v in value.items()}
+        if isinstance(value, (list, tuple)):
+            return [convert(name, v) for v in value]
+        return _tensor(name, value, dtype, device)
+
+    return Params(convert("", tree))
+
+
+def _layer_slice(tree: Mapping[str, Any], i: int, n: int) -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out[k] = _layer_slice(v, i, n)
+        else:
+            v = np.asarray(v)
+            if v.shape[:1] != (n,):
+                raise ValueError(f"layers.{k}: shape {v.shape} does not stack {n} layers")
+            out[k] = v[i]
+    return out
+
+
+def lm_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any], device=None) -> Params:
+    """The port's module for ``cfg`` from the JAX package's parameter tree
+    as numpy arrays, on the card unless ``device`` says otherwise."""
+    check_ported(cfg)
+    device = resolve_device(device)
+    n = cfg.num_layers
+    embed_shape = tuple(np.shape(tree["embed"]))
+    if embed_shape != (padded_vocab(cfg), cfg.d_model):
+        raise ValueError(f"embed: shape {embed_shape} does not fit {cfg.name}")
+    layers = [_layer_slice(tree["layers"], i, n) for i in range(n)]
+    top = {k: v for k, v in tree.items() if k != "layers"}
+    return params_from_numpy({**top, "layers": layers}, _dtype(cfg), device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _tree(module: nn.Module) -> Dict[str, Any]:
+    out: Dict[str, Any] = {k: _numpy(p) for k, p in module._parameters.items()}
+    for k, sub in module._modules.items():
+        out[k] = _stack([_tree(m) for m in sub]) if isinstance(sub, nn.ModuleList) else _tree(sub)
+    return out
+
+
+def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else np.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
+def lm_to_numpy(module: Params) -> Dict[str, Any]:
+    """The JAX package's parameter tree (``layers`` stacked ``[L, ...]``)
+    as numpy arrays, from the port's module."""
+    return _tree(module)

@@ -1,9 +1,10 @@
-"""Serving layer of the port: continuous-batched multi-tenant sparse
-solving (:mod:`repro_torch.serve.sparse`), driven by a background tick
-thread (:mod:`repro_torch.serve.driver`) — the sparse-serving names of
-the JAX package's ``repro.serve``. Its wave-batched LM engine is not
-ported yet (ROADMAP.md, Queue 1, item 8)."""
+"""Serving layer of the port: wave-batched LM decoding
+(:mod:`repro_torch.serve.engine`) and continuous-batched multi-tenant
+sparse solving (:mod:`repro_torch.serve.sparse`), driven by a background
+tick thread (:mod:`repro_torch.serve.driver`) — the names of the JAX
+package's ``repro.serve``."""
 from repro_torch.serve.driver import ServeDriver
+from repro_torch.serve.engine import Request, ServeEngine, greedy_generate
 from repro_torch.serve.metrics import ServeMetrics, TenantMetrics, percentile
 from repro_torch.serve.sparse import (
     QueueFullError,
@@ -14,6 +15,9 @@ from repro_torch.serve.sparse import (
 )
 
 __all__ = [
+    "Request",
+    "ServeEngine",
+    "greedy_generate",
     "ServeDriver",
     "ServeMetrics",
     "TenantMetrics",

@@ -7,7 +7,10 @@ the first spmv of a lazy load on ``stream``, a patched spmv bitwise the
 cold pack, and a load with no device given taking the card. Then the
 engine killed at each fault point, bitwise its uninterrupted run, and
 the ``shard_map`` executor on an NCCL group of one rank, within 1e-5 of
-the oracle on the golden schedule.
+the oracle on the golden schedule. Last, the language models: each
+family's forward and decode steps on the card within 1e-5 of the CPU's
+on the same weights, and the LM engine's tokens bitwise
+``greedy_generate``'s on the same batch.
 
 Marked ``gpu``; each test asks a fixture for the card and skips without
 one. The file imports no JAX, so it also runs where only PyTorch is
@@ -34,6 +37,7 @@ from repro_torch.analysis import (
     trace_pmvc_step,
 )
 from repro_torch.api.exchange import resolve_exchange
+from repro_torch.config import get_arch
 from repro_torch.core.nezgt import nezgt_partition
 from repro_torch.kernels.attn import attention_plain, attention_variant, flash_attention, mha
 from repro_torch.kernels.gmm import gmm_plain, gmm_variant, grouped_matmul, plan_groups
@@ -47,10 +51,11 @@ from repro_torch.kernels.spmv import (
     spmm_variant,
     spmv_shard,
 )
+from repro_torch.models import build, lm_from_numpy, lm_to_numpy
 from repro_torch.pmvc.dist import Communicator, make_pmvc_step, make_unit_mesh, pad_x
 from repro_torch.pmvc.plan_device import pack_units
 from repro_torch.runtime import FaultInjector
-from repro_torch.serve import SparseServeEngine, Status
+from repro_torch.serve import Request, ServeEngine, SparseServeEngine, Status, greedy_generate
 from repro_torch.sparse.bell import pack_bell, tile_counts
 from repro_torch.sparse.formats import COO
 from repro_torch.sparse.generate import banded_coo, random_coo
@@ -466,3 +471,54 @@ def test_attention_kernel_matches_plain(cuda, causal, window, s, t, bq, bkv, d, 
     torch.testing.assert_close(o.float(), o_plain.float(), rtol=ATTN_TOL[dtype],
                                atol=ATTN_TOL[dtype])
     assert torch.equal(o, mha(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv))
+
+
+# -- language models ----------------------------------------------------------
+
+LM_TOL = 1e-5  # card vs CPU: max |d| / max |logit|, float32, TF32 off
+
+
+@pytest.mark.parametrize("arch,s", [("qwen3-1.7b", 16), ("h2o-danube-1.8b", 40),
+                                    ("mamba2-2.7b", 16), ("hymba-1.5b", 24),
+                                    ("llava-next-34b", 16)])
+def test_lm_on_the_card_matches_the_cpu(cuda, arch, s):
+    cfg = get_arch(arch).reduced()
+    model = build(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card = lm_from_numpy(cfg, lm_to_numpy(cpu), device=cuda)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)}
+    if cfg.frontend:
+        batch["frontend_embeds"] = rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32)
+
+    def err(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    with torch.no_grad():
+        assert err(model.forward(card, batch)[0], model.forward(cpu, batch)[0]) < LM_TOL
+    states = [model.init_state(p, batch, max_len=s) for p in (card, cpu)]
+    for t in range(s):
+        tok = batch["tokens"][:, t : t + 1]
+        (lg_card, states[0]), (lg_cpu, states[1]) = (
+            model.decode_step(p, tok, st) for p, st in zip((card, cpu), states))
+        assert lg_card.device.type == "cuda"
+        assert err(lg_card, lg_cpu) < LM_TOL, t
+
+
+def test_lm_engine_is_greedy_generate_on_the_card(cuda):
+    """Equal-length prompts in one wave of a ``ServeEngine`` whose
+    ``max_len`` is the prompt plus ``max_new``: the engine's batch is
+    ``greedy_generate``'s, so its tokens are bitwise the same."""
+    cfg = get_arch("qwen3-1.7b").reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(2))
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 12)).astype(np.int32)
+    want = greedy_generate(model, params, prompts, max_new=6)
+    eng = ServeEngine(model, params, batch_slots=4, max_len=18)
+    assert eng.device.type == "cuda"
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=6))
+    eng.run_until_drained()
+    assert eng.ticks == 12 + 6 - 1
+    for r in eng.completed:
+        np.testing.assert_array_equal(np.array(r.out), want[r.rid])

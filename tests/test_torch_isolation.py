@@ -53,6 +53,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         import repro_torch.analysis, repro_torch.analysis.__main__
         import repro_torch.analysis.schedule_audit, repro_torch.runtime
         import repro_torch.runtime.elastic, repro_torch.runtime.fault
+        import repro_torch.config, repro_torch.configs, repro_torch.data.synthetic
+        import repro_torch.models, repro_torch.serve.engine
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "jaxlib", "repro")
                      or m.startswith(("jax.", "jaxlib.", "repro.")))
@@ -181,7 +183,8 @@ def test_unported_serving_parts_say_so(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["repro_torch.runtime", "repro_torch.api.executors",
-                                    "repro_torch.analysis.schedule_audit"])
+                                    "repro_torch.analysis.schedule_audit",
+                                    "repro_torch.models", "repro_torch.serve.engine"])
 def test_last_ported_parts_import_alone_without_jax(module):
     """The fault runtime, the executor registry with ``shard_map`` and
     the schedule audit, each imported alone in a fresh interpreter, load
@@ -209,3 +212,26 @@ def test_plan_store_without_device_raises(monkeypatch, tmp_path):
             call()
     assert not os.path.exists(tmp_path / "c")
     assert load_session(path, device="cpu").device == torch.device("cpu")
+
+
+def test_lm_entry_points_without_device_raise(monkeypatch):
+    """``build(cfg).init``, ``lm_from_numpy`` and ``ServeEngine`` run on
+    the card unless given ``device="cpu"``: with no card they raise
+    before any weight is drawn or any cache made."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import build, lm_from_numpy, lm_to_numpy
+    from repro_torch.serve import ServeEngine
+
+    model = build(get_arch("qwen3-1.7b").reduced())
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    _no_card(monkeypatch)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(gen)
+    assert gen.initial_seed() == 0 and torch.equal(gen.get_state(),
+                                                   torch.Generator().manual_seed(0).get_state())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_from_numpy(model.cfg, lm_to_numpy(params))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params)
+    assert ServeEngine(model, params, device="cpu").device == torch.device("cpu")
