@@ -125,7 +125,30 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    cache length), every request bitwise ``greedy_generate`` on the same
    batch, and its agreement with batch-1 ``greedy_generate`` printed as
    a measurement;
-11. **times** — each kernel's time per launch at its path's shapes
+11. **lm train** — the training path (``repro_torch.optim``,
+   ``repro_torch.train``, ``repro_torch.checkpoint``, the MoE family),
+   which calls no kernel of the port (the three launch counters, set to 0
+   at its start, must stay 0): one train step of each family at
+   ``.reduced()`` size in float32 (the five of ``[lm serve]``,
+   granite-moe-1b-a400m and moonshot-v1-16b-a3b) on the card against the
+   CPU on the same weights, the loss within 1e-5 relative and each
+   gradient leaf within 1e-4 of its max |g| (the worst printed); on
+   qwen3 and granite-moe, remat ``"full"`` and ``"dots"`` bitwise
+   ``"none"`` and two microbatches against one; then qwen3-1.7b and
+   granite-moe-1b-a400m uncut in bf16, weights from ``--seed``, on
+   ``SyntheticStream`` batches of 4 × 512 tokens under each remat mode:
+   the step split into forward, backward and optimizer by CUDA events,
+   tokens/s, model FLOPs utilisation (6 · active parameters · tokens
+   over the step time and 989 TFLOP/s, recomputation not counted), peak
+   memory; finite loss and gradient norm, the loss falling over 10
+   steps, granite's aux loss and share of tokens dropped at capacity;
+   then ``TrainLoop`` with a ``CheckpointManager`` in a temporary
+   directory on both (reduced, float32): two uninterrupted runs bitwise
+   equal and a run with a failure at step 5 bitwise them, one restart;
+   last a checkpoint of qwen3-1.7b at full width cut to 2 layers (about
+   4.9 GB of npz): a blocking save, a restore (bitwise), an async save
+   and the stall it puts on the next step;
+12. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, the ``simt`` variant's time
    at the same shapes (the kernels of the previous slices, compared within
@@ -250,6 +273,22 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 8, 256, 16, 32
 LM_PROMPT_RANGE = (16, 128)
 LM_CHECK_LEN = 16
 LM_PROFILED_TICKS = 3
+# The [lm train] phase. Card against CPU: one train step of each family at
+# .reduced() size in float32 (the [lm serve] families and both MoE ones).
+LM_TRAIN_FAMILIES = LM_FAMILIES + (("granite-moe-1b-a400m", 16), ("moonshot-v1-16b-a3b", 16))
+TRAIN_LOSS_TOL = 1e-5  # |card - CPU| / |CPU| of the loss
+TRAIN_GRAD_TOL = 1e-4  # max |card - CPU| / max |CPU|, per gradient leaf
+# Full width, bf16: src/repro/configs/qwen3_1_7b.py and granite_moe_1b_a400m.py
+# uncut, weights from --seed, SyntheticStream batches of 4 x 512 tokens;
+# TRAIN_STEPS steps under remat "none" (the loss must fall), steps 1 to
+# TRAIN_TIMED timed by parts under each mode.
+TRAIN_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m")
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, TRAIN_TIMED = 10, 3
+TRAIN_LR = 3e-4  # TrainConfig's default; at 1e-3 granite-moe's loss rose over 10 updates
+# The checkpoint's cost: qwen3-1.7b at full width cut to 2 layers (the
+# embedding's 311 M parameters dominate: about 4.9 GB of npz).
+CKPT_LAYERS = 2
 
 
 def log(msg: str) -> None:
@@ -1846,7 +1885,373 @@ def phase_lm_serve(card: dict, seed: int, device) -> None:
     torch.cuda.empty_cache()
 
 
-# -- phase 11: times ---------------------------------------------------------
+# -- phase 11: lm train ------------------------------------------------------
+
+
+def grad_errors(grads: dict, ref: dict) -> dict:
+    """max |g - g_ref| / max |g_ref| per weight, on the CPU."""
+    return {n: float((grads[n].cpu() - ref[n]).abs().max() / ref[n].abs().max().clamp(min=1e-30))
+            for n in ref}
+
+
+def lm_train_card_vs_cpu(seed: int, device) -> None:
+    """Each family at reduced size in float32: one step's loss and gradients
+    on the card against the CPU's on the same weights; then on qwen3 and
+    granite-moe, remat "full" and "dots" bitwise "none" on the card, and
+    two microbatches against one."""
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.models import build, lm_from_numpy, lm_to_numpy
+    from repro_torch.optim import init_opt
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import value_and_grad
+
+    for arch, s in LM_TRAIN_FAMILIES:
+        cfg = get_arch(arch).reduced()
+        model = build(cfg)
+        cpu = model.init(torch.Generator().manual_seed(seed), device="cpu")
+        card = lm_from_numpy(cfg, lm_to_numpy(cpu), device=device)
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)}
+        if cfg.frontend:
+            batch["frontend_embeds"] = rng.standard_normal((2, 8, cfg.d_model)).astype(
+                np.float32)
+        tc = TrainConfig()
+        loss_c, met_c, g_c = value_and_grad(model, card, batch, None, tc)
+        loss, met, g = value_and_grad(model, cpu, batch, None, tc)
+        check(all(v.device.type == "cuda" for v in g_c.values()), f"[lm train] {arch} off the card")
+        loss_err = abs(float(loss_c) - float(loss)) / abs(float(loss))
+        errs = grad_errors(g_c, g)
+        worst = max(errs, key=errs.get)
+        check(loss_err <= TRAIN_LOSS_TOL, f"[lm train] {arch} loss card vs CPU {loss_err:.2e}")
+        check(errs[worst] <= TRAIN_GRAD_TOL,
+              f"[lm train] {arch} gradient {worst} card vs CPU {errs[worst]:.2e}")
+        log(f"[lm train] {arch} ({cfg.family}, reduced, float32): one step card vs CPU, loss "
+            f"{loss_err:.3e} (<= {TRAIN_LOSS_TOL}, aux {float(met_c['aux']):.4f}), worst "
+            f"gradient leaf {worst} {errs[worst]:.3e} of its max |g| (<= {TRAIN_GRAD_TOL})")
+        if arch not in TRAIN_ARCHS:
+            continue
+        for remat in ("full", "dots"):
+            loss_r, _, g_r = value_and_grad(model, card, batch, None, TrainConfig(remat=remat))
+            check(torch.equal(loss_r, loss_c) and all(torch.equal(g_r[n], g_c[n]) for n in g_c),
+                  f"[lm train] {arch} remat={remat} is not bitwise remat='none' on the card")
+        # Two microbatches against one, at tests/test_train_loop.py's
+        # tolerance. The MoE load-balance loss is not a sum over tokens (each
+        # microbatch has its own), so for MoE that check runs with its weight
+        # at 0 and the difference with the weight as configured is printed.
+        batch4 = {"tokens": rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)}
+        diffs = {}
+        for aux_w in ((0.0, TrainConfig().moe_aux_weight) if cfg.is_moe else (0.01,)):
+            outs = []
+            for m in (1, 2):
+                tc_m = TrainConfig(total_steps=10, warmup_steps=0, microbatches=m,
+                                   learning_rate=1e-3, moe_aux_weight=aux_w)
+                p = card.map(lambda _, w: w.clone())
+                p, _, metrics = make_train_step(model, tc_m)(p, init_opt(p), batch4)
+                outs.append((p, float(metrics["loss"])))
+            (p1, l1), (p2, l2) = outs
+            diffs[aux_w] = (abs(l1 - l2), max(float(((a - b).abs() - 2e-2 * b.abs()).max())
+                                              for a, b in zip(p1.parameters(), p2.parameters())))
+        loss_d, w_d = next(iter(diffs.values()))
+        check(loss_d < 1e-3 and w_d <= 2e-4,
+              f"[lm train] {arch} microbatches 2 vs 1: loss {loss_d:.2e}, weights {w_d:.2e}")
+        log(f"[lm train] {arch} on the card: remat full and dots bitwise none; microbatches 2 "
+            f"vs 1, checked to < 1e-3 on the loss and <= 2e-4 on max(|d| - 2e-2 |w|) of the "
+            f"weights: " + "; ".join(
+                f"aux weight {w}: loss {d[0]:.3e}, weights {d[1]:.3e}"
+                + (" (printed only)" if i else "") for i, (w, d) in enumerate(diffs.items())))
+
+
+def moe_drop_share(model, params, batch) -> tuple:
+    """(share of token copies dropped at capacity, MoE layers seen) in one
+    forward: the router's expert ids captured per layer and ranked in their
+    experts' queues as the dispatch ranks them."""
+    from repro_torch.models import moe as moe_mod
+
+    seen = []
+    router = moe_mod.router_topk
+
+    def spy(p, x, cfg):
+        out = router(p, x, cfg)
+        seen.append((out[1].detach(), x.shape[0] * x.shape[1]))
+        return out
+
+    moe_mod.router_topk = spy
+    try:
+        with torch.no_grad():
+            model.forward(params, batch)
+    finally:
+        moe_mod.router_topk = router
+    cfg = model.cfg
+    dropped = 0
+    for ids, t in seen:
+        pos = moe_mod._rank_within(ids.reshape(-1), cfg.num_experts, cfg.moe_sort_dispatch)
+        dropped += int((pos >= moe_mod._capacity(t, cfg, False)).sum())
+    return dropped / sum(ids.numel() for ids, _ in seen), len(seen)
+
+
+def split_step_ms(model, params, state, batch, tc) -> tuple:
+    """(forward, backward, optimizer) ms of one step by CUDA events: the
+    calls the train step makes (loss_fn, autograd, opt_update), under the
+    same deterministic mode, with their boundaries marked."""
+    from repro_torch.optim import opt_update
+    from repro_torch.train import loss_fn
+    from repro_torch.train.step import deterministic
+
+    names = [n for n, _ in params.named_parameters()]
+    weights = list(params.parameters())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with deterministic():
+        for w in weights:
+            w.requires_grad_(True)
+        ev[0].record()
+        loss, metrics = loss_fn(model, params, batch, None, tc)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, weights)
+        ev[2].record()
+        for w in weights:
+            w.requires_grad_(False)
+        params, state, opt_metrics = opt_update(params, dict(zip(names, grads)), state, tc)
+        ev[3].record()
+    torch.cuda.synchronize()
+    metrics = {k: float(v.detach()) for k, v in {**metrics, **opt_metrics}.items()}
+    return tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3)), state, metrics["loss"], metrics
+
+
+def lm_train_full_width(arch: str, seed: int, device, where: str) -> None:
+    """``arch`` uncut in bf16, weights from ``seed``: SyntheticStream
+    batches of TRAIN_BATCH x TRAIN_SEQ under each remat mode; the step time
+    split, tokens/s, MFU, peak memory; TRAIN_STEPS steps must lower the
+    loss."""
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.models import build
+    from repro_torch.models.common import count_params
+    from repro_torch.optim import init_opt
+    from repro_torch.train import loss_fn, make_train_step
+
+    cfg = get_arch(arch)
+    model = build(cfg)
+    stream = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+
+    def batch_at(step):
+        return {"tokens": torch.as_tensor(
+            SyntheticStream(stream, start_step=step).batch_at(step), device=device)}
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_active = cfg.active_param_count()
+    flops = 6 * n_active * tokens
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    rows = {}
+    for remat in ("none", "full", "dots"):
+        tc = TrainConfig(remat=remat, learning_rate=TRAIN_LR, warmup_steps=2,
+                         total_steps=100)
+        params = model.init(torch.Generator(device=device).manual_seed(seed))
+        n_params = count_params(params)
+        if cfg.is_moe and remat == "none":
+            drops0 = moe_drop_share(model, params, batch_at(TRAIN_STEPS + 1))
+        state = init_opt(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() - base
+        # Step 0 warms up, steps 1 to TRAIN_TIMED are timed by parts, the
+        # rest as whole steps; under "none" TRAIN_STEPS updates, then a step.
+        steps = TRAIN_STEPS + 1 if remat == "none" else TRAIN_TIMED + 2
+        losses, auxes, splits, walls, metrics = [], [], [], [], {}
+        step_fn = make_train_step(model, tc)
+        for i in range(steps):
+            batch = batch_at(i)
+            if 1 <= i <= TRAIN_TIMED:
+                split, state, loss, metrics = split_step_ms(model, params, state, batch, tc)
+                splits.append(split)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step_fn(params, state, batch)
+                loss = float(m["loss"])  # waits for the step
+                walls.append(time.perf_counter() - t0)
+                metrics = {k: float(v) for k, v in m.items()}
+            check(np.isfinite(loss) and np.isfinite(metrics["grad_norm"]),
+                  f"[lm train] {arch} remat={remat} step {i}: loss {loss}, "
+                  f"grad_norm {metrics['grad_norm']}")
+            losses.append(loss)
+            auxes.append(metrics["aux"])
+        peak = torch.cuda.max_memory_allocated() - base
+        fwd, bwd, opt = np.median(np.asarray(splits), axis=0)
+        step_ms = fwd + bwd + opt
+        rows[remat] = step_ms
+        log(f"[lm train] {arch} bf16 remat={remat}: step {step_ms:.1f} ms (forward {fwd:.1f}, "
+            f"backward {bwd:.1f}, optimizer {opt:.1f}; CUDA events, median of {len(splits)}), "
+            f"whole step by host clock {np.median(walls[1:]) * 1e3:.1f} ms; "
+            f"{tokens / step_ms * 1e3:.0f} tokens/s; MFU {flops / (step_ms / 1e3) / PEAK_BF16_FLOPS:.1%}"
+            f"; peak {peak / 2**30:.2f} GiB above the phase's start ({resident / 2**30:.2f} GiB "
+            f"weights and moments) [{where}]")
+        if remat == "none":
+            # The loss on step 0's batch again, after the updates: the
+            # stream's batches differ from step to step.
+            with torch.no_grad():
+                again = float(loss_fn(model, params, batch_at(0), None, tc)[0])
+            check(again < losses[0], f"[lm train] {arch}: loss on step 0's batch {losses[0]:.4f}"
+                  f" -> {again:.4f} after {TRAIN_STEPS} updates did not fall")
+            log(f"[lm train] {arch} full width: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+                f"vocab {cfg.vocab_size}, {n_params / 1e9:.4f} G parameters "
+                f"({n_active / 1e9:.4f} G active by ArchConfig.active_param_count); bf16 weights "
+                f"and gradients with float32 mu and nu reckon "
+                f"{n_params * (2 + 2 + 4 + 4) / 1e9:.2f} GB before activations; loss on step "
+                f"0's batch {losses[0]:.4f} before and {again:.4f} after {TRAIN_STEPS} updates "
+                f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens at lr {TRAIN_LR} (each step's: "
+                + " ".join(f"{v:.3f}" for v in losses) + "); "
+                f"MFU = 6 * {n_active} * {tokens} / step_s / {PEAK_BF16_FLOPS:.3g} "
+                f"(recomputation not counted)")
+            if cfg.is_moe:
+                share, layers = moe_drop_share(model, params, batch_at(TRAIN_STEPS + 1))
+                log(f"[lm train] {arch}: aux (summed over {layers} layers; loss = ce + "
+                    f"{tc.moe_aux_weight} * aux) {auxes[0]:.4f} at step 0, {auxes[-1]:.4f} at step "
+                    f"{TRAIN_STEPS}; token copies dropped at capacity factor "
+                    f"{cfg.moe_capacity_factor} in one forward of a fresh batch: {drops0[0]:.2%} "
+                    f"before training, {share:.2%} after {TRAIN_STEPS} updates")
+        del params, state, step_fn
+        torch.cuda.empty_cache()
+    log(f"[lm train] {arch} step ms by remat: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rows.items()) + f" [{where}]")
+
+
+def lm_train_loops(seed: int, device) -> None:
+    """TrainLoop with a CheckpointManager in a temporary directory, reduced
+    float32, on the card: two uninterrupted runs bitwise equal, and a run
+    with a failure at step 5 bitwise them with one restart."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.models import build
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.train import TrainLoop, make_train_step
+
+    for arch in TRAIN_ARCHS:
+        cfg = get_arch(arch).reduced()
+        model = build(cfg)
+        p0 = model.init(torch.Generator(device=device).manual_seed(seed))
+        tc = TrainConfig(total_steps=8, warmup_steps=2, checkpoint_every=2, learning_rate=1e-2)
+        stream = DataConfig(cfg.vocab_size, seq_len=32, global_batch=4, seed=seed)
+
+        def batch_fn(s):
+            return {"tokens": SyntheticStream(stream, start_step=s).batch_at(s)}
+
+        step = make_train_step(model, tc)
+        runs = []
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            for name, faults in (("a", None), ("b", None), ("c", FaultInjector({5: 0}))):
+                loop = TrainLoop(step, batch_fn, tc, fault_injector=faults,
+                                 ckpt=CheckpointManager(os.path.join(d, name), keep=10))
+                runs.append(loop.run(p0, num_steps=8))
+        a, b, c = runs
+        check(c.restarts == 1 and c.final_step == 8, f"[lm train] {arch} loop restarts {c.restarts}")
+        for name, res in (("a second uninterrupted run", b), ("the resumed run", c)):
+            same = all(torch.equal(x, y) for x, y in zip(
+                list(a.params.parameters()) + list(a.opt_state.nu.parameters()),
+                list(res.params.parameters()) + list(res.opt_state.nu.parameters())))
+            check(same, f"[lm train] {arch}: {name} is not bitwise the uninterrupted run")
+        check(next(a.params.parameters()).device.type == "cuda", "[lm train] loop off the card")
+        log(f"[lm train] {arch} (reduced, float32) TrainLoop on the card, checkpoints every 2 "
+            f"steps: two uninterrupted runs bitwise equal; a failure at step 5 restored and "
+            f"replayed (restarts {c.restarts}) bitwise them; loss {a.metrics_history[0]['loss']:.4f}"
+            f" -> {a.metrics_history[-1]['loss']:.4f}; 3 runs in {time.perf_counter() - t0:.1f} s")
+
+
+def lm_train_checkpoint_cost(seed: int, device, where: str) -> None:
+    """qwen3-1.7b at full width cut to CKPT_LAYERS layers, bf16, after one
+    step: a blocking save, a restore (bitwise), an async save and the
+    stall it puts on the next step."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.models import build
+    from repro_torch.optim import init_opt
+    from repro_torch.train import make_train_step
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=CKPT_LAYERS)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed))
+    state = init_opt(params)
+    step = make_train_step(model, TrainConfig(warmup_steps=0))
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)), device=device)}
+
+    def timed_step():
+        nonlocal params, state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+        return time.perf_counter() - t0
+
+    timed_step()  # moments non-zero, kernels warm
+    base_s = timed_step()
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, keep=2)
+        t0 = time.perf_counter()
+        mgr.save(1, (params, state), blocking=True)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(d, "step_000000001", "arrays.npz"))
+        t0 = time.perf_counter()
+        (rp, rs), _ = mgr.restore((params, state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(x, y) for x, y in zip(
+            list(params.parameters()) + list(state.mu.parameters()) + list(state.nu.parameters()),
+            list(rp.parameters()) + list(rs.mu.parameters()) + list(rs.nu.parameters())))
+        check(same and rs.step == state.step, "[lm train] checkpoint round trip is not bitwise")
+        check(next(rp.parameters()).device.type == "cuda", "[lm train] restored off the card")
+        del rp, rs
+        t0 = time.perf_counter()
+        mgr.save(2, (params, state), blocking=False)
+        call_s = time.perf_counter() - t0
+        next_s = timed_step()
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t0
+    log(f"[lm train] checkpoint of {LM_ARCH} at full width cut to {CKPT_LAYERS} layers (bf16 "
+        f"weights stored as float32, float32 mu and nu): {nbytes / 1e9:.3f} GB of npz; blocking "
+        f"save {save_s:.2f} s ({nbytes / save_s / 1e9:.2f} GB/s), restore to the card "
+        f"{restore_s:.2f} s, bitwise; async save returns in {call_s:.2f} s (host copies), the "
+        f"next step takes {next_s * 1e3:.1f} ms against {base_s * 1e3:.1f} ms without a write in "
+        f"flight, the write ends {wait_s:.2f} s after that step [{where}]")
+
+
+def phase_lm_train(card: dict, seed: int, device) -> None:
+    from repro_torch.kernels.attn import flash_attention
+    from repro_torch.kernels.gmm import grouped_matmul
+    from repro_torch.kernels.spmv import bell_spmm
+
+    where = card["smi"]
+    t_phase = time.perf_counter()
+    counters = (bell_spmm, grouped_matmul, flash_attention)
+    for k in counters:
+        k.launches = 0
+    parts = {}
+    lm_train_card_vs_cpu(seed, device)
+    parts["card vs CPU"] = time.perf_counter() - t_phase
+    for arch in TRAIN_ARCHS:
+        lm_train_full_width(arch, seed, device, where)
+        parts[arch] = time.perf_counter() - t_phase - sum(parts.values())
+    lm_train_loops(seed, device)
+    parts["loops"] = time.perf_counter() - t_phase - sum(parts.values())
+    lm_train_checkpoint_cost(seed, device, where)
+    parts["checkpoint"] = time.perf_counter() - t_phase - sum(parts.values())
+    launched = {k.__name__: k.launches for k in counters}
+    check(not any(launched.values()), f"[lm train] a kernel of the port ran: {launched}")
+    log(f"[lm train] phase {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f"); kernel launches "
+        f"{launched}: the train path calls no kernel of the port, as the reference's calls no "
+        f"Pallas kernel")
+    torch.cuda.empty_cache()
+
+
+# -- phase 12: times ---------------------------------------------------------
 
 
 def bsr_library_ms(bt, xb, reps):
@@ -2172,6 +2577,7 @@ def main() -> int:
     moe = phase_lm_moe(device)
     attn = phase_lm_attention(device)
     phase_lm_serve(card, args.seed, device)
+    phase_lm_train(card, args.seed, device)
     rows = phase_times(main_path, card, device)
     gmm_rows = phase_times_gmm(moe, card)
     attn_rows = phase_times_attn(attn, card)

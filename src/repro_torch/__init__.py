@@ -20,7 +20,15 @@ public surface is :mod:`repro_torch.api`::
 """
 from __future__ import annotations
 
-import torch
+import os
+
+# The train step runs under torch.use_deterministic_algorithms(True), where
+# PyTorch refuses cuBLAS unless this names a deterministic workspace
+# (:4096:8 or :16:8). PyTorch reads it once, at the process's first cuBLAS
+# call, so it is set here, before any product runs; a caller's value stays.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 # Float32 parity with the JAX package is held at 1e-5; TF32 keeps about
 # three decimal digits and fails it, so no float32 product may use it.

@@ -2,7 +2,7 @@
 
 ``build(cfg)`` returns a :class:`Model` with:
   * ``init(generator, device=None) -> params``  (a :class:`Params` module)
-  * ``forward(params, batch, ctx, remat) -> (logits, aux)``   (prefill)
+  * ``forward(params, batch, ctx, remat) -> (logits, aux)``   (train / prefill)
   * ``init_state(params, batch, max_len) -> state``  (decode cache)
   * ``decode_step(params, tokens, state, ctx) -> (logits, state)``
 
@@ -35,8 +35,8 @@ class Model:
 
 
 def build(cfg: ArchConfig) -> Model:
-    """The decoder-only families (dense, vlm, ssm, hybrid). The MoE and
-    encoder-decoder families raise ``NotImplementedError``."""
+    """The decoder-only families (dense, vlm, moe, ssm, hybrid). The
+    encoder-decoder family raises ``NotImplementedError``."""
     lm_mod.check_ported(cfg)
 
     def init(generator: torch.Generator, device=None):

@@ -1,7 +1,7 @@
 """GQA/MQA attention with qk-norm, sliding-window and decode paths.
 
-The JAX package's attention as plain PyTorch products: einsums and a
-masked softmax, or, for long sequences with ``chunked_attn``, an online
+The JAX package's attention as plain PyTorch products: einsums (the
+projections through :func:`project`) and a masked softmax, or, for long sequences with ``chunked_attn``, an online
 softmax over KV chunks. It calls neither the port's attention kernel nor
 ``scaled_dot_product_attention``, as the reference calls no Pallas
 kernel here. The order of the casts is the reference's: the scores are
@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.config import ArchConfig
-from repro_torch.models.common import Params, dense_init, rms_norm, rope
+from repro_torch.models.common import Params, dense_init, project, rms_norm, rope
 
 __all__ = [
     "init_attn",
@@ -47,9 +47,9 @@ def init_attn(generator: torch.Generator, cfg: ArchConfig, dtype, device=None) -
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = project(x, p["wq"])
+    k = project(x, p["wk"])
+    v = project(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -143,13 +143,13 @@ def attention(
             q, k, v, causal=causal, window=window if window > 0 else None,
             chunk=cfg.attn_chunk, scale=1.0 / (cfg.hd**0.5),
         ).reshape(b, s, h, cfg.hd)
-        return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+        return project(o, p["wo"], 2)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k) / (cfg.hd**0.5)
     m = _mask(s, s, causal, window, device=x.device)
     scores = torch.where(m[None, None, None], scores.float(), NEG_INF)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     o = torch.einsum("bkgst,btkd->bskgd", w, v).reshape(b, s, h, cfg.hd)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return project(o, p["wo"], 2)
 
 
 class KVCache(NamedTuple):
@@ -214,5 +214,5 @@ def decode_attention(
     scores = torch.where(valid, scores.float(), NEG_INF)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     o = torch.einsum("bkgst,btkd->bskgd", w, cache.v).reshape(b, 1, h, hd)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    out = project(o, p["wo"], 2)
     return out, KVCache(k=cache.k, v=cache.v, length=pos + 1)

@@ -7,10 +7,16 @@ whose nested dicts and lists are submodules, so ``p["wq"]`` and
 ``p.wq`` read the same weight as the reference's ``p["wq"]``. The casts
 follow the reference exactly (``rms_norm`` in float32, ``rope``'s angles
 in float32), because the card has no JAX to catch a reordering.
+
+The JAX package stacks every layer's weights on a leading ``[L, ...]``
+axis; the port keeps one module per block in the ``layers`` list.
+:func:`stacked_groups` names each weight by its place in the JAX tree, so
+that what the reference decides on a stacked leaf (weight decay by rank,
+one int8 scale, one checkpoint array) is decided here on the same leaf.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +24,8 @@ from torch import nn
 
 __all__ = [
     "Params",
+    "stacked_groups",
+    "project",
     "rms_norm",
     "rope",
     "softplus",
@@ -32,9 +40,10 @@ class Params(nn.Module):
     """Named weights: each tensor becomes a parameter, each mapping a
     nested ``Params`` and each list an ``nn.ModuleList`` of them.
 
-    Parameters are made with ``requires_grad=False``: the port serves and
-    does not train yet, and a decode step writes its caches in place,
-    which autograd must not record.
+    Parameters are made with ``requires_grad=False``: a decode step writes
+    its caches in place, which autograd must not record. The train step
+    (:mod:`repro_torch.train.step`) turns gradients on for the module it
+    trains, for the length of the step.
     """
 
     def __init__(self, entries: Mapping[str, object]):
@@ -60,6 +69,48 @@ class Params(nn.Module):
 
     def get(self, name: str, default=None):
         return getattr(self, name) if name in self else default
+
+    def map(self, fn: Callable[[str, torch.Tensor], torch.Tensor]) -> "Params":
+        """A new module of the same structure whose weight ``name`` (as
+        ``named_parameters`` gives it) is ``fn(name, weight)``."""
+
+        def tree(m: nn.Module, prefix: str):
+            if isinstance(m, nn.ModuleList):
+                return [tree(sub, f"{prefix}{i}.") for i, sub in enumerate(m)]
+            out: Dict[str, object] = {k: fn(prefix + k, p) for k, p in m._parameters.items()}
+            out.update({k: tree(sub, f"{prefix}{k}.") for k, sub in m._modules.items()})
+            return out
+
+        return Params(tree(self, ""))
+
+
+def stacked_groups(names: Iterable[str]) -> List[Tuple[str, List[str]]]:
+    """The JAX tree's leaves over the port's weight names, in the order
+    ``jax.tree.leaves`` gives them (dict keys sorted at every level):
+    ``(key, names)`` with ``key`` the leaf's path joined by ``/`` and
+    ``names`` the weights that make it up — one per layer, in layer order,
+    for a leaf under a list of blocks (``layers.3.attn.wq`` is layer 3 of
+    ``layers/attn/wq``), else the one weight."""
+    groups: Dict[Tuple[str, ...], List[Tuple[int, str]]] = {}
+    for name in names:
+        parts = name.split(".")
+        index = next((i for i, part in enumerate(parts) if part.isdigit()), None)
+        if index is None:
+            groups.setdefault(tuple(parts), []).append((-1, name))
+        else:
+            key = tuple(parts[:index] + parts[index + 1:])
+            groups.setdefault(key, []).append((int(parts[index]), name))
+    return [("/".join(key), [n for _, n in sorted(groups[key])]) for key in sorted(groups)]
+
+
+def project(x: torch.Tensor, w: torch.Tensor, dims: int = 1) -> torch.Tensor:
+    """``x``'s last ``dims`` axes contracted with ``w``'s first ``dims``:
+    the reference's ``jnp.einsum("bsd,df->bsf", x, w)`` and its kin, a
+    product with no batch dimension. It is one ``aten.mm``, which is how
+    ``remat="dots"`` tells the products it saves
+    (``checkpoint_dots_with_no_batch_dims``) from the batched ones, which
+    ``torch.einsum`` runs as ``aten.bmm``."""
+    return torch.tensordot(x, w, dims=dims)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -13,6 +13,11 @@ numpy has no bfloat16 of its own: a bfloat16 array of the JAX package
 :func:`lm_to_numpy` returns a bfloat16 weight as float32 — the same
 values, so a tree survives ``lm_to_numpy(lm_from_numpy(cfg, tree))``
 value for value, and bit for bit when it is float32.
+
+The optimizer's state crosses the same way: :func:`opt_to_numpy` gives
+the reference's ``OptState`` fields (``mu`` and ``nu`` as stacked trees
+of float32, ``step`` an int32 scalar) and :func:`opt_from_numpy` takes
+them back.
 """
 from __future__ import annotations
 
@@ -24,11 +29,16 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.config import ArchConfig
+from repro_torch.models import moe, ssm
 from repro_torch.models.common import Params
-from repro_torch.models.ssm import FLOAT32_PARAMS
 from repro_torch.models.transformer import _dtype, check_ported, padded_vocab
+from repro_torch.optim import adamw  # OptState; adamw imports models.common in turn
 
-__all__ = ["params_from_numpy", "lm_from_numpy", "lm_to_numpy"]
+__all__ = ["params_from_numpy", "lm_from_numpy", "lm_to_numpy", "opt_from_numpy",
+           "opt_to_numpy"]
+
+# Weights kept in float32 whatever the model's type.
+FLOAT32_PARAMS = ssm.FLOAT32_PARAMS + moe.FLOAT32_PARAMS
 
 
 def _tensor(name: str, arr, dtype: torch.dtype, device) -> torch.Tensor:
@@ -42,7 +52,7 @@ def _tensor(name: str, arr, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_numpy(tree: Mapping[str, Any], dtype: torch.dtype, device) -> Params:
     """A :class:`Params` module from a nested dict of arrays (lists of
     dicts become module lists), each weight in ``dtype`` on ``device``
-    except the SSD's float32 parameters."""
+    except the float32 ones (the SSD's, the MoE router)."""
 
     def convert(name, value):
         if isinstance(value, Mapping):
@@ -67,9 +77,7 @@ def _layer_slice(tree: Mapping[str, Any], i: int, n: int) -> Dict[str, Any]:
     return out
 
 
-def lm_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any], device=None) -> Params:
-    """The port's module for ``cfg`` from the JAX package's parameter tree
-    as numpy arrays, on the card unless ``device`` says otherwise."""
+def _unstacked(cfg: ArchConfig, tree: Mapping[str, Any], dtype: torch.dtype, device) -> Params:
     check_ported(cfg)
     device = resolve_device(device)
     n = cfg.num_layers
@@ -78,16 +86,34 @@ def lm_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any], device=None) -> Para
         raise ValueError(f"embed: shape {embed_shape} does not fit {cfg.name}")
     layers = [_layer_slice(tree["layers"], i, n) for i in range(n)]
     top = {k: v for k, v in tree.items() if k != "layers"}
-    return params_from_numpy({**top, "layers": layers}, _dtype(cfg), device)
+    return params_from_numpy({**top, "layers": layers}, dtype, device)
 
 
-def _numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+def lm_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any], device=None) -> Params:
+    """The port's module for ``cfg`` from the JAX package's parameter tree
+    as numpy arrays, on the card unless ``device`` says otherwise."""
+    return _unstacked(cfg, tree, _dtype(cfg), device)
+
+
+def opt_from_numpy(cfg: ArchConfig, state, device=None) -> "adamw.OptState":
+    """The port's optimizer state for ``cfg`` from the reference's
+    ``OptState`` (or any ``(mu, nu, step)``) as numpy arrays: ``mu`` and
+    ``nu`` stacked trees of float32, on the card unless ``device`` says
+    otherwise."""
+    mu, nu, step = state
+    return adamw.OptState(_unstacked(cfg, mu, torch.float32, device),
+                    _unstacked(cfg, nu, torch.float32, device), np.int32(step))
+
+
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """A host copy (never a view of the weight: the train step updates
+    weights in place), bfloat16 as float32."""
+    dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    return t.detach().to(device="cpu", dtype=dtype, copy=True).numpy()
 
 
 def _tree(module: nn.Module) -> Dict[str, Any]:
-    out: Dict[str, Any] = {k: _numpy(p) for k, p in module._parameters.items()}
+    out: Dict[str, Any] = {k: host_copy(p) for k, p in module._parameters.items()}
     for k, sub in module._modules.items():
         out[k] = _stack([_tree(m) for m in sub]) if isinstance(sub, nn.ModuleList) else _tree(sub)
     return out
@@ -98,7 +124,14 @@ def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
             else np.stack([t[k] for t in trees]) for k, v in trees[0].items()}
 
 
-def lm_to_numpy(module: Params) -> Dict[str, Any]:
+def lm_to_numpy(module: nn.Module) -> Dict[str, Any]:
     """The JAX package's parameter tree (``layers`` stacked ``[L, ...]``)
-    as numpy arrays, from the port's module."""
+    as numpy arrays, from the port's module: nested dicts, each list of
+    blocks stacked, bfloat16 as float32."""
     return _tree(module)
+
+
+def opt_to_numpy(state: "adamw.OptState") -> "adamw.OptState":
+    """The reference's ``OptState`` fields from the port's: ``mu`` and
+    ``nu`` as stacked trees of float32 numpy arrays, ``step`` an int32."""
+    return adamw.OptState(_tree(state.mu), _tree(state.nu), np.int32(state.step))

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
-from repro_torch.models.common import Params, dense_init, rms_norm, softplus
+from repro_torch.models.common import Params, dense_init, project, rms_norm, softplus
 
 __all__ = [
     "FLOAT32_PARAMS",
@@ -58,12 +58,27 @@ def init_ssm(generator: torch.Generator, cfg: ArchConfig, dtype, device=None) ->
 
 
 def _split_proj(p: Params, u: torch.Tensor, cfg: ArchConfig):
-    z = torch.einsum("bsd,de->bse", u, p["w_z"])
-    x = torch.einsum("bsd,de->bse", u, p["w_x"])
-    b_mat = torch.einsum("bsd,dn->bsn", u, p["w_b"])
-    c_mat = torch.einsum("bsd,dn->bsn", u, p["w_c"])
-    dt = torch.einsum("bsd,dh->bsh", u, p["w_dt"])
+    z = project(u, p["w_z"])
+    x = project(u, p["w_x"])
+    b_mat = project(u, p["w_b"])
+    c_mat = project(u, p["w_c"])
+    dt = project(u, p["w_dt"])
     return z, x, b_mat, c_mat, dt
+
+
+def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum``, except on the card under
+    ``torch.use_deterministic_algorithms`` (the train step): PyTorch refuses
+    a floating-point CUDA cumsum there, so the running sum is a product
+    with a lower-triangular matrix of ones, which cuBLAS computes the same
+    way on every run (and whose backward is a product too). It is an
+    einsum (``aten.bmm``), not a :func:`project`: ``remat="dots"`` does
+    not save it, as ``jax.checkpoint`` does not save a cumsum."""
+    if not (x.is_cuda and torch.are_deterministic_algorithms_enabled()):
+        return torch.cumsum(x, dim)
+    n = x.shape[dim]
+    tril = torch.tril(torch.ones((n, n), dtype=x.dtype, device=x.device))
+    return torch.einsum("ij,j...->i...", tril, x.movedim(dim, 0)).movedim(0, dim)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -93,7 +108,7 @@ def ssm_forward(p: Params, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     cm = c_mat.reshape(bsz, nc, cl, n).float()
     dtc = dt.reshape(bsz, nc, cl, h)
     lg = loga.reshape(bsz, nc, cl, h)
-    lcum = torch.cumsum(lg, dim=2)  # [B,nc,cl,H] inclusive cumulative log-decay
+    lcum = _cumsum(lg, dim=2)  # [B,nc,cl,H] inclusive cumulative log-decay
 
     # --- Intra-chunk (masked attention-like) ------------------------------
     cb = torch.einsum("bcin,bcjn->bcij", cm, bm)  # [B,nc,cl,cl]
@@ -126,7 +141,7 @@ def ssm_forward(p: Params, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     y = y_intra + y_inter + p["d_skip"][None, None, None, :, None] * xh
     y = y.reshape(bsz, s, cfg.d_inner).to(u.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return project(y, p["out_proj"])
 
 
 class SsmCache(NamedTuple):
@@ -169,5 +184,5 @@ def ssm_decode_step(
     y = torch.einsum("bhpn,bn->bhp", state, cv) + p["d_skip"][None, :, None] * xh
     y = y.reshape(bsz, 1, cfg.d_inner).to(u.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = project(y, p["out_proj"])
     return out, SsmCache(conv=new_conv, state=state)

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly: the dense, VLM, SSM and hybrid families.
+"""Decoder-only LM assembly: the dense, VLM, MoE, SSM and hybrid families.
 
 The JAX package stacks the layers' parameters and scans one generic
 block over them; the port keeps one :class:`Params` module per block in
@@ -7,31 +7,46 @@ host integers. With host windows the reference's dynamic-window helpers
 (``_attention_dynwin``, ``_decode_attention_dynwin``) are plain
 :func:`attention` and :func:`decode_attention` calls, and its
 ``act_anchor`` sharding constraint is a no-op without a mesh, the only
-case here. The MoE family and the sharded paths are not ported yet
-(ROADMAP.md, Queue 1, item 8).
+case here (a mesh raises: ROADMAP.md, Queue 1, item 8e).
+
+``remat`` recomputes in the backward pass what the reference's
+``jax.checkpoint`` of its scan body recomputes: ``"full"`` is
+``torch.utils.checkpoint`` around each block, ``"dots"`` saves the
+products without a batch dimension (each block's projections, one
+``aten.mm`` each through :func:`project`) and recomputes the rest, as
+``checkpoint_dots_with_no_batch_dims`` does.
 
 Families:
   dense  : attn + SwiGLU MLP (also the VLM backbone, with frontend
            embeddings prepended)
+  moe    : attn + MoE FFN (repro_torch.models.moe), whose load-balance
+           loss is summed over the layers
   ssm    : Mamba-2 SSD block only
   hybrid : parallel attn(SWA) ‖ SSD heads + MLP (Hymba-style)
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import Params, dense_init, embed_init, rms_norm
+from repro_torch.models.common import Params, dense_init, embed_init, project, rms_norm
 from repro_torch.models.moe import MeshCtx
 
 __all__ = ["init_lm", "lm_forward", "lm_decode_step", "init_decode_state", "DecodeState"]
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1, item 8)"
+REMAT = ("none", "full", "dots")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -40,10 +55,10 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port lacks."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"the MoE family ({cfg.name}) {_NOT_PORTED}")
     if cfg.family == "encdec":
-        raise NotImplementedError(f"the encoder-decoder family ({cfg.name}) {_NOT_PORTED}")
+        raise NotImplementedError(
+            f"the encoder-decoder family ({cfg.name}) is not ported yet "
+            "(ROADMAP.md, Queue 1, item 8d)")
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -64,9 +79,9 @@ def init_mlp(generator: torch.Generator, cfg: ArchConfig, dtype, device=None) ->
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
-    u = torch.einsum("bsd,df->bsf", x, p["w_up"])
-    return torch.einsum("bsf,fd->bsd", h * u, p["w_down"])
+    h = F.silu(project(x, p["w_gate"]))
+    u = project(x, p["w_up"])
+    return project(h * u, p["w_down"])
 
 
 def _init_layer(generator: torch.Generator, cfg: ArchConfig, dtype, device=None) -> Params:
@@ -84,6 +99,8 @@ def _init_layer(generator: torch.Generator, cfg: ArchConfig, dtype, device=None)
         p["beta_attn"] = ones()
         p["beta_ssm"] = ones()
         p["mlp"] = init_mlp(generator, cfg, dtype, device)
+    elif cfg.is_moe:
+        p["moe"] = moe_mod.init_moe(generator, cfg, dtype, device)
     else:
         p["mlp"] = init_mlp(generator, cfg, dtype, device)
     return Params(p)
@@ -121,11 +138,12 @@ def _block(
     lp: Params,
     win: int,
     cfg: ArchConfig,
-) -> torch.Tensor:
-    """One residual block with the layer's window ``win``."""
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One residual block with the layer's window ``win``. Returns (x,
+    the MoE load-balance loss, or None for the other families)."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        return x + ssm_mod.ssm_forward(lp["ssm"], h, cfg)
+        return x + ssm_mod.ssm_forward(lp["ssm"], h, cfg), None
 
     if cfg.family == "hybrid":
         a_out = attn_mod.attention(lp["attn"], h, cfg, causal=True, window=win)
@@ -136,12 +154,38 @@ def _block(
         )
         x = x + mix
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        return x + mlp(lp["mlp"], h2)
+        return x + mlp(lp["mlp"], h2), None
 
     a_out = attn_mod.attention(lp["attn"], h, cfg, causal=True, window=cfg.window)
     x = x + a_out
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2)
+    if cfg.is_moe:
+        y, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
+        return x + y, aux
+    return x + mlp(lp["mlp"], h2), None
+
+
+def _save_projections(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: keep the products without a batch dimension (the
+    port runs exactly those as ``aten.mm``), recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(remat: str):
+    """``_block``, recomputed in the backward pass as ``remat`` says."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: expected one of {REMAT}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return _block
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_projections)
+    # The blocks draw no random numbers: there is no RNG state to replay.
+    return functools.partial(checkpoint, _block, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
 
 
 def _embed_inputs(params: Params, batch: Dict[str, object], cfg: ArchConfig):
@@ -176,18 +220,21 @@ def lm_forward(
     remat: str = "none",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits [B,S,V], aux_loss); the aux
-    loss is the MoE load-balance term, zero for these families. ``ctx``
-    keeps the reference's signature: without a mesh it holds nothing the
-    single-device path reads."""
-    if remat != "none":
-        raise NotImplementedError(f"remat={remat!r} {_NOT_PORTED}")
+    loss is the MoE load-balance term summed over the layers, zero for
+    the other families. ``ctx`` keeps the reference's signature: without
+    a mesh it holds nothing the single-device path reads. ``remat`` is
+    one of ``REMAT`` and only matters when autograd records the call."""
+    block = _remat_block(remat)
     x, n_front = _embed_inputs(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, win in zip(params["layers"], _layer_windows(cfg)):
-        x = _block(x, lp, win, cfg)
+        x, a = block(x, lp, win, cfg)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if n_front:
         x = x[:, n_front:]
-    return _logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, x, cfg), aux
 
 
 # --------------------------------------------------------------------------
@@ -266,6 +313,8 @@ def _decode_block(
     a_out, _ = attn_mod.decode_attention(lp["attn"], h, kvc, cfg, window=cfg.window)
     x = x + a_out
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+    if cfg.is_moe:
+        return x + moe_mod.moe_ffn(lp["moe"], h2, cfg)[0]
     return x + mlp(lp["mlp"], h2)
 
 

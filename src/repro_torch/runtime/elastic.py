@@ -11,7 +11,7 @@ mesh (:class:`Replicated`). That is the one placement the sparse side
 uses — the serving engine re-places a plan's shard arrays on the
 survivors of a unit loss. A sharded placement (a spec that names an
 axis) is for the LM stack's parameters and waits for its port
-(ROADMAP.md, Queue 1, item 8): :func:`reshard_tree` raises
+(ROADMAP.md, Queue 1, item 8e): :func:`reshard_tree` raises
 ``NotImplementedError`` for one.
 """
 from __future__ import annotations
@@ -101,7 +101,7 @@ def _place(leaf, mesh: np.ndarray, spec) -> Replicated:
     if not spec.replicated:
         raise NotImplementedError(
             f"sharded placement {spec!r}: only the replicated P() is ported; a sharded "
-            "one waits for the LM stack (ROADMAP.md, Queue 1, item 8)"
+            "one waits for the LM stack (ROADMAP.md, Queue 1, item 8e)"
         )
     if isinstance(leaf, torch.Tensor):
         src = leaf.detach()

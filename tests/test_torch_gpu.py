@@ -10,7 +10,10 @@ the ``shard_map`` executor on an NCCL group of one rank, within 1e-5 of
 the oracle on the golden schedule. Last, the language models: each
 family's forward and decode steps on the card within 1e-5 of the CPU's
 on the same weights, and the LM engine's tokens bitwise
-``greedy_generate``'s on the same batch.
+``greedy_generate``'s on the same batch. Last, training: one step's
+loss and gradients on the card against the CPU's, the step
+deterministic (two runs bitwise equal), and a loop resumed after a
+failure bitwise the uninterrupted one.
 
 Marked ``gpu``; each test asks a fixture for the card and skips without
 one. The file imports no JAX, so it also runs where only PyTorch is
@@ -51,7 +54,13 @@ from repro_torch.kernels.spmv import (
     spmm_variant,
     spmv_shard,
 )
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.config import TrainConfig
+from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.models import build, lm_from_numpy, lm_to_numpy
+from repro_torch.optim import init_opt
+from repro_torch.train import TrainLoop, make_train_step
+from repro_torch.train.step import value_and_grad
 from repro_torch.pmvc.dist import Communicator, make_pmvc_step, make_unit_mesh, pad_x
 from repro_torch.pmvc.plan_device import pack_units
 from repro_torch.runtime import FaultInjector
@@ -522,3 +531,70 @@ def test_lm_engine_is_greedy_generate_on_the_card(cuda):
     assert eng.ticks == 12 + 6 - 1
     for r in eng.completed:
         np.testing.assert_array_equal(np.array(r.out), want[r.rid])
+
+
+TRAIN_ARCHS = ["qwen3-1.7b", "mamba2-2.7b", "hymba-1.5b", "granite-moe-1b-a400m"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Loss within 1e-5 relative, each gradient leaf within 1e-4 of its max."""
+    cfg = get_arch(arch).reduced()
+    model = build(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card = lm_from_numpy(cfg, lm_to_numpy(cpu), device=cuda)
+    batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16))}
+    loss_c, _, g_c = value_and_grad(model, card, batch, None, TrainConfig())
+    loss, _, g = value_and_grad(model, cpu, batch, None, TrainConfig())
+    assert abs(float(loss_c) - float(loss)) <= 1e-5 * abs(float(loss))
+    for n in g:
+        assert g_c[n].device.type == "cuda"
+        assert float((g_c[n].cpu() - g[n]).abs().max()) <= 1e-4 * float(g[n].abs().max()), n
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+@pytest.mark.parametrize("remat", ["none", "dots"])
+def test_train_step_is_deterministic_on_the_card(cuda, arch, remat):
+    """Two steps from the same state give the same bits (the step runs
+    under deterministic algorithms), and "dots" gives "none"'s."""
+    cfg = get_arch(arch).reduced()
+    model = build(cfg)
+    p0 = model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 32))}
+    step = make_train_step(model, TrainConfig(warmup_steps=0, remat=remat))
+    outs = []
+    for _ in range(2):
+        p = p0.map(lambda _, w: w.clone())
+        p, state, metrics = step(p, init_opt(p), batch)
+        outs.append((p, state, metrics))
+    (a, sa, ma), (b, sb, mb) = outs
+    assert torch.equal(ma["loss"], mb["loss"]) and torch.equal(ma["grad_norm"], mb["grad_norm"])
+    for x, y in zip(list(a.parameters()) + list(sa.nu.parameters()),
+                    list(b.parameters()) + list(sb.nu.parameters())):
+        assert torch.equal(x, y)
+    _, _, g_none = value_and_grad(model, p0, batch, None, TrainConfig())
+    _, _, g_remat = value_and_grad(model, p0, batch, None, TrainConfig(remat=remat))
+    assert all(torch.equal(g_none[n], g_remat[n]) for n in g_none)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+def test_resume_is_bit_exact_on_the_card(cuda, tmp_path, arch):
+    cfg = get_arch(arch).reduced()
+    model = build(cfg)
+    p0 = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tc = TrainConfig(total_steps=8, warmup_steps=2, checkpoint_every=2, learning_rate=1e-2)
+    dc = DataConfig(cfg.vocab_size, seq_len=32, global_batch=4, seed=0)
+
+    def batch_fn(s):
+        return {"tokens": SyntheticStream(dc, start_step=s).batch_at(s)}
+
+    step = make_train_step(model, tc)
+    runs = []
+    for name, faults in (("a", None), ("b", None), ("c", FaultInjector({5: 0}))):
+        loop = TrainLoop(step, batch_fn, tc, fault_injector=faults,
+                         ckpt=CheckpointManager(str(tmp_path / name), keep=10))
+        runs.append(loop.run(p0, num_steps=8))
+    assert runs[2].restarts == 1
+    for res in runs[1:]:
+        for x, y in zip(runs[0].params.parameters(), res.params.parameters()):
+            assert x.device.type == "cuda" and torch.equal(x, y)

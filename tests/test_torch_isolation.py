@@ -55,6 +55,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         import repro_torch.runtime.elastic, repro_torch.runtime.fault
         import repro_torch.config, repro_torch.configs, repro_torch.data.synthetic
         import repro_torch.models, repro_torch.serve.engine
+        import repro_torch.optim, repro_torch.train, repro_torch.checkpoint
+        import repro_torch.core.expert_placement, repro_torch.models.moe
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "jaxlib", "repro")
                      or m.startswith(("jax.", "jaxlib.", "repro.")))
@@ -184,7 +186,10 @@ def test_unported_serving_parts_say_so(tmp_path):
 
 @pytest.mark.parametrize("module", ["repro_torch.runtime", "repro_torch.api.executors",
                                     "repro_torch.analysis.schedule_audit",
-                                    "repro_torch.models", "repro_torch.serve.engine"])
+                                    "repro_torch.models", "repro_torch.serve.engine",
+                                    "repro_torch.optim", "repro_torch.train",
+                                    "repro_torch.checkpoint", "repro_torch.core.expert_placement",
+                                    "repro_torch.models.moe"])
 def test_last_ported_parts_import_alone_without_jax(module):
     """The fault runtime, the executor registry with ``shard_map`` and
     the schedule audit, each imported alone in a fresh interpreter, load
@@ -235,3 +240,34 @@ def test_lm_entry_points_without_device_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(model, params)
     assert ServeEngine(model, params, device="cpu").device == torch.device("cpu")
+
+
+def test_train_entry_points_without_device_raise(monkeypatch):
+    """The optimizer state's loader runs on the card unless given
+    ``device="cpu"``; the train step and loop run where the weights are."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import build
+    from repro_torch.models.interop import opt_from_numpy, opt_to_numpy
+    from repro_torch.optim import init_opt
+
+    model = build(get_arch("granite-moe-1b-a400m").reduced())
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    state = opt_to_numpy(init_opt(params))
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt_from_numpy(model.cfg, state)
+    assert opt_from_numpy(model.cfg, state, device="cpu").mu["embed"].device.type == "cpu"
+
+
+def test_cublas_workspace_is_set_for_deterministic_steps():
+    """Importing the port names a deterministic cuBLAS workspace unless the
+    caller named one: PyTorch refuses cuBLAS under deterministic
+    algorithms without it, and reads it once, at the first cuBLAS call."""
+    code = "import os, repro_torch; print(os.environ['CUBLAS_WORKSPACE_CONFIG'])"
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    run = lambda: subprocess.run([sys.executable, "-c", code], capture_output=True,  # noqa: E731
+                                 text=True, env=env, timeout=120, check=True).stdout.strip()
+    assert run() == ":4096:8"
+    env["CUBLAS_WORKSPACE_CONFIG"] = ":16:8"
+    assert run() == ":16:8"
