@@ -108,7 +108,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    three launch counters, set to 0 at its start, must stay 0): each
    family at ``.reduced()`` size in float32 (qwen3-1.7b, h2o-danube-1.8b
    over a ring that wraps twice, mamba2-2.7b, hymba-1.5b, llava-next-34b
-   with frontend embeddings), the same weights on the CPU and, through
+   with frontend embeddings, seamless-m4t-medium over encoder frames),
+   the same weights on the CPU and, through
    ``lm_to_numpy`` → ``lm_from_numpy``, on the card: forward and every
    decode step within 1e-5 of the CPU's; then qwen3-1.7b at full width
    (28 layers, d_model 2048, vocab 151,936), weights from ``--seed`` on
@@ -124,12 +125,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    of 16 tokens through an engine of ``max_len`` 48 (``greedy_generate``'s
    cache length), every request bitwise ``greedy_generate`` on the same
    batch, and its agreement with batch-1 ``greedy_generate`` printed as
-   a measurement;
+   a measurement; then seamless-m4t-medium at full width (12 encoder
+   and 12 decoder layers, d_model 1024, vocab 256,206), weights from
+   ``--seed``: float32 forward against step-by-step decode on 2 prompts
+   of 64 tokens over 128 frames of ``frontend_stub``, within 1e-4; bf16
+   ``greedy_generate`` of 8 prompts of 16 tokens over 128 frames, 32 new
+   tokens each (the encode time, the decode step's wall p50 and the
+   generated tokens/s printed); and the LM ``ServeEngine``, whose
+   tokens-only wave must raise the reference's
+   ``KeyError('frontend_embeds')`` on this family;
 11. **lm train** — the training path (``repro_torch.optim``,
    ``repro_torch.train``, ``repro_torch.checkpoint``, the MoE family),
    which calls no kernel of the port (the three launch counters, set to 0
    at its start, must stay 0): one train step of each family at
-   ``.reduced()`` size in float32 (the five of ``[lm serve]``,
+   ``.reduced()`` size in float32 (the six of ``[lm serve]``,
    granite-moe-1b-a400m and moonshot-v1-16b-a3b) on the card against the
    CPU on the same weights, the loss within 1e-5 relative and each
    gradient leaf within 1e-4 of its max |g| (the worst printed); on
@@ -142,7 +151,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    over the step time and 989 TFLOP/s, recomputation not counted), peak
    memory; finite loss and gradient norm, the loss falling over 10
    steps, granite's aux loss and share of tokens dropped at capacity;
-   then ``TrainLoop`` with a ``CheckpointManager`` in a temporary
+   seamless-m4t-medium uncut in bf16 the same way on ``make_batch``'s 4 ×
+   512 tokens with 128 frames, 10 steps under remat ``"none"`` and 10
+   under ``"full"``, the loss falling under each, its
+   MFU over 6 · (encoder parameters · frames + decoder-and-head
+   parameters · tokens); then ``TrainLoop`` with a ``CheckpointManager`` in a temporary
    directory on both (reduced, float32): two uninterrupted runs bitwise
    equal and a run with a failure at step 5 bitwise them, one restart;
    last a checkpoint of qwen3-1.7b at full width cut to 2 layers (about
@@ -154,8 +167,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    at the same shapes (the kernels of the previous slices, compared within
    the run), the spmv wall time and peak device memory per exchange, the
    shares of the replicated spmv's device time taken by the kernel and by
-   the unit sum, and — a measurement, not a check — whether column j of
-   the replicated spmv at B = 64 is bitwise the B = 1 spmv.
+   the unit sum (beside the ``cumsum`` it replaced, and whether the two
+   are bitwise equal), every exchange's spmv at each B inside the train
+   step's ``deterministic()`` block bitwise the same spmv outside it, and
+   — a measurement, not a check — whether column j of the replicated
+   spmv at B = 64 is bitwise the B = 1 spmv.
 
 Then one JSON line with the kernels' numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. With no CUDA device the
@@ -257,7 +273,7 @@ ATTN_TILE = 128  # bq = bkv
 # tests/test_torch_lm_models.py (h2o's 40 positions wrap its ring of window
 # + 1 = 17 slots twice; hymba's 24 reach past its window of 16).
 LM_FAMILIES = (("qwen3-1.7b", 16), ("h2o-danube-1.8b", 40), ("mamba2-2.7b", 16),
-               ("hymba-1.5b", 24), ("llava-next-34b", 16))
+               ("hymba-1.5b", 24), ("llava-next-34b", 16), ("seamless-m4t-medium", 16))
 LM_TOL_CARD = 1e-5  # card vs CPU, max |d| / max |logit|
 # Full width: src/repro/configs/qwen3_1_7b.py, all 28 layers, random weights
 # from --seed; forward against step-by-step decode on 2 prompts of 64 tokens
@@ -273,6 +289,15 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 8, 256, 16, 32
 LM_PROMPT_RANGE = (16, 128)
 LM_CHECK_LEN = 16
 LM_PROFILED_TICKS = 3
+# The encoder-decoder family at full width: src/repro/configs/seamless_m4t_medium.py
+# uncut (12 + 12 layers, d_model 1024, vocab 256,206), weights from --seed;
+# forward against decode on LM_PROMPTS prompts of LM_PROMPT_LEN tokens over
+# ENCDEC_FRAMES frames of frontend_stub, within LM_TOL_F32 in float32; then
+# bf16 greedy_generate of ENCDEC_PROMPTS prompts of LM_CHECK_LEN tokens, LM_NEW
+# new each. The LM ServeEngine must fail on the family as the reference's does.
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_FRAMES = 128
+ENCDEC_PROMPTS = 8
 # The [lm train] phase. Card against CPU: one train step of each family at
 # .reduced() size in float32 (the [lm serve] families and both MoE ones).
 LM_TRAIN_FAMILIES = LM_FAMILIES + (("granite-moe-1b-a400m", 16), ("moonshot-v1-16b-a3b", 16))
@@ -283,6 +308,11 @@ TRAIN_GRAD_TOL = 1e-4  # max |card - CPU| / max |CPU|, per gradient leaf
 # TRAIN_STEPS steps under remat "none" (the loss must fall), steps 1 to
 # TRAIN_TIMED timed by parts under each mode.
 TRAIN_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m")
+# seamless-m4t-medium uncut in bf16 on make_batch's batches (4 x 512 tokens
+# and 512 // 4 = 128 frames, its config having no frontend_len), TRAIN_STEPS
+# steps under remat "none" and under "full", the loss falling under each
+# ("dots" is the reference's "none" for this family).
+TRAIN_ENCDEC_REMATS = ("none", "full")
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 TRAIN_STEPS, TRAIN_TIMED = 10, 3
 TRAIN_LR = 3e-4  # TrainConfig's default; at 1e-3 granite-moe's loss rose over 10 updates
@@ -1703,6 +1733,106 @@ def lm_requests(cfg, seed: int) -> list:
     return [toks[i, :n] for i, n in enumerate(lengths)]
 
 
+def lm_encdec_full_width(seed: int, device, where: str) -> None:
+    """seamless-m4t-medium uncut, weights from ``seed`` on the card: float32
+    forward against step-by-step decode (checked), then bf16
+    ``greedy_generate`` on frames (timed), then the LM ``ServeEngine``,
+    which must fail on the family with the reference's ``KeyError``."""
+    from repro_torch.config import get_arch
+    from repro_torch.data import DataConfig, SyntheticStream, frontend_stub
+    from repro_torch.models import build
+    from repro_torch.models.common import count_params
+    from repro_torch.serve import Request, ServeEngine, greedy_generate
+
+    cfg16 = get_arch(ENCDEC_ARCH)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    tokens = torch.as_tensor(SyntheticStream(
+        DataConfig(cfg16.vocab_size, LM_PROMPT_LEN, LM_PROMPTS, seed=seed)).batch_at(0),
+        device=device)
+    frames = torch.as_tensor(frontend_stub(cfg16, LM_PROMPTS, ENCDEC_FRAMES, seed=seed),
+                             device=device)
+    batch = {"tokens": tokens, "frontend_embeds": frames}
+    model32 = build(cfg32)
+    t0 = time.perf_counter()
+    params32 = model32.init(torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_enc = sum(p.numel() for n, p in params32.named_parameters()
+                if n.startswith(("enc_layers.", "enc_norm")))
+    log(f"[lm serve] {ENCDEC_ARCH} full width: {cfg16.encoder_layers} encoder and "
+        f"{cfg16.num_layers} decoder layers, d_model {cfg16.d_model}, {cfg16.num_heads} heads "
+        f"(kv {cfg16.num_kv_heads}), head_dim {cfg16.hd}, d_ff {cfg16.d_ff}, vocab "
+        f"{cfg16.vocab_size}; {count_params(params32) / 1e9:.4f} G parameters ({n_enc / 1e9:.4f} G"
+        f" in the encoder), float32 {lm_weight_bytes(params32) / 1e9:.3f} GB drawn from --seed "
+        f"on the card in {init_s:.2f} s")
+    with torch.no_grad():
+        full, _ = model32.forward(params32, batch)
+    state = model32.init_state(params32, batch, max_len=LM_PROMPT_LEN)
+    outs = []
+    for t in range(LM_PROMPT_LEN):
+        lg, state = model32.decode_step(params32, tokens[:, t : t + 1], state)
+        outs.append(lg)
+    step = torch.stack(outs, dim=1)
+    check(bool(torch.isfinite(full).all()) and full.shape == (
+        LM_PROMPTS, LM_PROMPT_LEN, cfg16.vocab_size), "[lm serve] enc-dec logits misshapen")
+    err32 = scaled_err(step, full)
+    check(err32 <= LM_TOL_F32, f"[lm serve] {ENCDEC_ARCH} float32 forward vs decode {err32:.2e}")
+    log(f"[lm serve] {ENCDEC_ARCH} {LM_PROMPTS} prompts x {LM_PROMPT_LEN} tokens over "
+        f"{ENCDEC_FRAMES} frames: forward vs decode float32 {err32:.3e} (<= {LM_TOL_F32})")
+    del params32, full, step, outs, state
+    torch.cuda.empty_cache()
+
+    # bf16 greedy_generate, its init_state (the encoder) and every decode
+    # step timed by the host clock with a synchronize on either side.
+    model16 = build(cfg16)
+    params16 = model16.init(torch.Generator(device=device).manual_seed(seed))
+    times = {"encode": [], "step": []}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t1)
+            return out
+        return call
+
+    clocked = dataclasses.replace(model16, init_state=timed("encode", model16.init_state),
+                                  decode_step=timed("step", model16.decode_step))
+    prompts = SyntheticStream(DataConfig(cfg16.vocab_size, LM_CHECK_LEN, ENCDEC_PROMPTS,
+                                         seed=seed + 1)).batch_at(0)
+    fr = frontend_stub(cfg16, ENCDEC_PROMPTS, ENCDEC_FRAMES, seed=seed + 1)
+    greedy_generate(clocked, params16, prompts[:, :4], 2, frontend_embeds=fr)  # warm-up
+    times = {"encode": [], "step": []}
+    t0 = time.perf_counter()
+    out = greedy_generate(clocked, params16, prompts, LM_NEW, frontend_embeds=fr)
+    wall = time.perf_counter() - t0
+    check(out.shape == (ENCDEC_PROMPTS, LM_NEW) and bool((out >= 0).all())
+          and bool((out < cfg16.vocab_size).all()), "[lm serve] enc-dec greedy tokens misshapen")
+    steps_ms = np.asarray(times["step"]) * 1e3
+    log(f"[lm serve] {ENCDEC_ARCH} bf16 greedy_generate: {ENCDEC_PROMPTS} prompts of "
+        f"{LM_CHECK_LEN} tokens over {ENCDEC_FRAMES} frames, {LM_NEW} new tokens each, "
+        f"{wall:.3f} s; encode (init_state) {times['encode'][0] * 1e3:.2f} ms; "
+        f"{len(steps_ms)} decode steps, wall p50 {np.percentile(steps_ms, 50):.3f} ms (p99 "
+        f"{np.percentile(steps_ms, 99):.3f}); {ENCDEC_PROMPTS * LM_NEW / wall:.1f} generated "
+        f"tokens/s [{where}]")
+
+    eng = ServeEngine(model16, params16, batch_slots=2, max_len=LM_CHECK_LEN + LM_NEW)
+    eng.submit(Request(rid=0, prompt=prompts[0], max_new=LM_NEW))
+    try:
+        eng.run_until_drained()
+    except KeyError as e:
+        check(e.args == ("frontend_embeds",), f"[lm serve] enc-dec engine raised {e!r}")
+    else:
+        raise RuntimeError("check failed: the LM ServeEngine served the enc-dec family "
+                           "without frames; the reference raises KeyError")
+    log(f"[lm serve] {ENCDEC_ARCH}: the LM ServeEngine's tokens-only wave raises "
+        f"KeyError('frontend_embeds'), as the reference's does")
+    del params16, eng
+    torch.cuda.empty_cache()
+
+
 def phase_lm_serve(card: dict, seed: int, device) -> None:
     from repro_torch.config import get_arch
     from repro_torch.data import DataConfig, SyntheticStream
@@ -1876,13 +2006,17 @@ def phase_lm_serve(card: dict, seed: int, device) -> None:
         f"(a measurement): {req_eq} of {LM_SLOTS} requests and {tok_eq:.1%} of tokens equal")
 
     parts["batch-1 decodes"] = time.perf_counter() - t_phase - sum(parts.values())
+    del eng, params16
+    torch.cuda.empty_cache()
+
+    # 5. The encoder-decoder family at full width.
+    lm_encdec_full_width(seed, device, where)
+    parts["enc-dec full width"] = time.perf_counter() - t_phase - sum(parts.values())
     launched = {k.__name__: k.launches for k in counters}
     check(not any(launched.values()), f"[lm serve] a kernel of the port ran: {launched}")
     log(f"[lm serve] phase {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f"); kernel launches {launched}: "
         f"the LM path calls no kernel of the port, as the reference's calls no Pallas kernel")
-    del eng, params16
-    torch.cuda.empty_cache()
 
 
 # -- phase 11: lm train ------------------------------------------------------
@@ -2017,13 +2151,15 @@ def split_step_ms(model, params, state, batch, tc) -> tuple:
     return tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3)), state, metrics["loss"], metrics
 
 
-def lm_train_full_width(arch: str, seed: int, device, where: str) -> None:
-    """``arch`` uncut in bf16, weights from ``seed``: SyntheticStream
-    batches of TRAIN_BATCH x TRAIN_SEQ under each remat mode; the step time
-    split, tokens/s, MFU, peak memory; TRAIN_STEPS steps must lower the
-    loss."""
-    from repro_torch.config import TrainConfig, get_arch
-    from repro_torch.data import DataConfig, SyntheticStream
+def lm_train_full_width(arch: str, seed: int, device, where: str,
+                        remats=("none", "full", "dots"), trained=("none",)) -> None:
+    """``arch`` uncut in bf16, weights from ``seed``: ``make_batch``'s
+    batches of TRAIN_BATCH x TRAIN_SEQ tokens (SyntheticStream's, and
+    frames for a frontend) under each remat mode; the step time split,
+    tokens/s, MFU, peak memory; under each mode of ``trained`` (the first
+    of ``remats`` among them) TRAIN_STEPS steps must lower the loss."""
+    from repro_torch.config import ShapeConfig, TrainConfig, get_arch
+    from repro_torch.data import make_batch
     from repro_torch.models import build
     from repro_torch.models.common import count_params
     from repro_torch.optim import init_opt
@@ -2031,23 +2167,35 @@ def lm_train_full_width(arch: str, seed: int, device, where: str) -> None:
 
     cfg = get_arch(arch)
     model = build(cfg)
-    stream = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
 
     def batch_at(step):
-        return {"tokens": torch.as_tensor(
-            SyntheticStream(stream, start_step=step).batch_at(step), device=device)}
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in make_batch(cfg, shape, seed=seed, step=step).items()}
 
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    frames = batch_at(0).get("frontend_embeds")
+    frame_rows = 0 if frames is None else frames.shape[0] * frames.shape[1]
     n_active = cfg.active_param_count()
-    flops = 6 * n_active * tokens
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     rows = {}
-    for remat in ("none", "full", "dots"):
+    for remat in remats:
         tc = TrainConfig(remat=remat, learning_rate=TRAIN_LR, warmup_steps=2,
                          total_steps=100)
         params = model.init(torch.Generator(device=device).manual_seed(seed))
         n_params = count_params(params)
+        if cfg.family == "encdec":
+            # 6 x (encoder parameters x frames + decoder-and-head parameters x
+            # tokens); the tied embedding counts once, as the head.
+            n_enc = sum(p.numel() for n, p in params.named_parameters()
+                        if n.startswith(("enc_layers.", "enc_norm")))
+            flops = 6 * (n_enc * frame_rows + (n_params - n_enc) * tokens)
+            flop_text = (f"6 * ({n_enc} * {frame_rows} frames + {n_params - n_enc} * {tokens} "
+                         f"tokens)")
+        else:
+            flops = 6 * n_active * tokens
+            flop_text = f"6 * {n_active} * {tokens}"
         if cfg.is_moe and remat == "none":
             drops0 = moe_drop_share(model, params, batch_at(TRAIN_STEPS + 1))
         state = init_opt(params)
@@ -2056,7 +2204,7 @@ def lm_train_full_width(arch: str, seed: int, device, where: str) -> None:
         resident = torch.cuda.memory_allocated() - base
         # Step 0 warms up, steps 1 to TRAIN_TIMED are timed by parts, the
         # rest as whole steps; under "none" TRAIN_STEPS updates, then a step.
-        steps = TRAIN_STEPS + 1 if remat == "none" else TRAIN_TIMED + 2
+        steps = TRAIN_STEPS + 1 if remat in trained else TRAIN_TIMED + 2
         losses, auxes, splits, walls, metrics = [], [], [], [], {}
         step_fn = make_train_step(model, tc)
         for i in range(steps):
@@ -2086,14 +2234,21 @@ def lm_train_full_width(arch: str, seed: int, device, where: str) -> None:
             f"{tokens / step_ms * 1e3:.0f} tokens/s; MFU {flops / (step_ms / 1e3) / PEAK_BF16_FLOPS:.1%}"
             f"; peak {peak / 2**30:.2f} GiB above the phase's start ({resident / 2**30:.2f} GiB "
             f"weights and moments) [{where}]")
-        if remat == "none":
+        if remat in trained:
             # The loss on step 0's batch again, after the updates: the
             # stream's batches differ from step to step.
             with torch.no_grad():
                 again = float(loss_fn(model, params, batch_at(0), None, tc)[0])
-            check(again < losses[0], f"[lm train] {arch}: loss on step 0's batch {losses[0]:.4f}"
-                  f" -> {again:.4f} after {TRAIN_STEPS} updates did not fall")
-            log(f"[lm train] {arch} full width: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            check(again < losses[0], f"[lm train] {arch} remat={remat}: loss on step 0's batch "
+                  f"{losses[0]:.4f} -> {again:.4f} after {TRAIN_STEPS} updates did not fall")
+        if remat != remats[0] and remat in trained:
+            log(f"[lm train] {arch} remat={remat}: loss on step 0's batch {losses[0]:.4f} before "
+                f"and {again:.4f} after {TRAIN_STEPS} updates (each step's: "
+                + " ".join(f"{v:.3f}" for v in losses) + ")")
+        if remat == remats[0]:
+            depth = (f"{cfg.encoder_layers} encoder and {cfg.num_layers} decoder layers"
+                     if cfg.family == "encdec" else f"{cfg.num_layers} layers")
+            log(f"[lm train] {arch} full width: {depth}, d_model {cfg.d_model}, "
                 f"vocab {cfg.vocab_size}, {n_params / 1e9:.4f} G parameters "
                 f"({n_active / 1e9:.4f} G active by ArchConfig.active_param_count); bf16 weights "
                 f"and gradients with float32 mu and nu reckon "
@@ -2101,7 +2256,7 @@ def lm_train_full_width(arch: str, seed: int, device, where: str) -> None:
                 f"0's batch {losses[0]:.4f} before and {again:.4f} after {TRAIN_STEPS} updates "
                 f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens at lr {TRAIN_LR} (each step's: "
                 + " ".join(f"{v:.3f}" for v in losses) + "); "
-                f"MFU = 6 * {n_active} * {tokens} / step_s / {PEAK_BF16_FLOPS:.3g} "
+                f"MFU = {flop_text} / step_s / {PEAK_BF16_FLOPS:.3g} "
                 f"(recomputation not counted)")
             if cfg.is_moe:
                 share, layers = moe_drop_share(model, params, batch_at(TRAIN_STEPS + 1))
@@ -2238,6 +2393,9 @@ def phase_lm_train(card: dict, seed: int, device) -> None:
     for arch in TRAIN_ARCHS:
         lm_train_full_width(arch, seed, device, where)
         parts[arch] = time.perf_counter() - t_phase - sum(parts.values())
+    lm_train_full_width(ENCDEC_ARCH, seed, device, where, TRAIN_ENCDEC_REMATS,
+                        trained=TRAIN_ENCDEC_REMATS)
+    parts[ENCDEC_ARCH] = time.perf_counter() - t_phase - sum(parts.values())
     lm_train_loops(seed, device)
     parts["loops"] = time.perf_counter() - t_phase - sum(parts.values())
     lm_train_checkpoint_cost(seed, device, where)
@@ -2282,7 +2440,9 @@ def bsr_library_ms(bt, xb, reps):
 
 def phase_times(main: dict, card: dict, device) -> list:
     from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles, spmm_variant
+    import repro_torch.pmvc.dist as dist_mod
     from repro_torch.pmvc.dist import hoist_tiles, pad_x, unit_sum
+    from repro_torch.train.step import deterministic
 
     sess = main["sessions"]["replicated"]
     dp = sess.device_plan
@@ -2304,6 +2464,10 @@ def phase_times(main: dict, card: dict, device) -> list:
         old_ms = cuda_ms(lambda: spmm_simt(bt, xsrc), reps)
         partials = bell_spmm(bt, xsrc)
         sum_ms = cuda_ms(lambda: unit_sum(partials), reps)  # the executor's unit sum
+        # The unit sum it replaced, a cumsum over the units (refused under
+        # deterministic mode on CUDA): its time, and whether the two agree.
+        cumsum_ms = cuda_ms(lambda: partials.cumsum(dim=0)[-1].clone(), reps)
+        sum_same = bool(torch.equal(unit_sum(partials), partials.cumsum(dim=0)[-1]))
         del partials
         plain_ms = cuda_ms(lambda: bell_spmm_plain(bt.tiles, bt.tile_row, bt.tile_src,
                                                    bt.counts, xsrc, nrb), 5, warmup=1)
@@ -2327,13 +2491,17 @@ def phase_times(main: dict, card: dict, device) -> list:
                      "bound_by": "bytes" if t_bytes >= t_flops else "operations",
                      "library_ms": lib_ms, "library_call": lib_name,
                      "max_abs_err": err, "bytes": bytes_moved, "flops": flops,
-                     "simt_ms": old_ms, "sum_ms": sum_ms})
+                     "simt_ms": old_ms, "sum_ms": sum_ms, "cumsum_ms": cumsum_ms,
+                     "sum_same": sum_same})
         log(f"[times] bell_spmm U={u_n} T={bt.tiles.shape[1]} real={real} ({bm}x{bn}) "
             f"B={b}: kernel ({variant}) {ms:.4f} ms, simt variant {old_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms "
             f"({rows[-1]['bound_by']}; {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
             f"{bound_ms / ms:.1%} of bound, plain {plain_ms:.4f} ms, "
             f"{lib_name} {lib_ms:.4f} ms, max |kernel - plain| {err:.3e} [{where}]")
+
+    def cumsum_unit_sum(partials):
+        return partials.cumsum(dim=0)[-1].clone()
 
     by_b = {r["B"]: r for r in rows}
     for ex, s in main["sessions"].items():
@@ -2342,13 +2510,34 @@ def phase_times(main: dict, card: dict, device) -> list:
             x_np = rng.standard_normal((b, dp.shape[1])).astype(np.float32)
             x = torch.as_tensor(x_np, device=device)
             dev_ms = cuda_ms(lambda: mv(x), 10)
+            with deterministic():
+                y_det = mv(x)
+            check(torch.equal(y_det, mv(x)), f"[times] spmv {ex} B={b} under deterministic "
+                  f"mode is not bitwise the spmv outside it")
             if ex == "replicated":
+                # The spmv's device time with the unit sum the loop of adds
+                # replaced (a cumsum over the units, put back in the
+                # executor's module for the measurement), in turns with the
+                # loop: after, before, before, after.
+                dist_mod.unit_sum = cumsum_unit_sum
+                try:
+                    before_ms = [cuda_ms(lambda: mv(x), 10) for _ in range(2)]
+                finally:
+                    dist_mod.unit_sum = unit_sum
+                after_ms = [dev_ms, cuda_ms(lambda: mv(x), 10)]
+                log(f"[times] spmv replicated B={b}: device ms with the unit sum as a loop of "
+                    f"adds {after_ms[0]:.4f}, {after_ms[1]:.4f} (mean {np.mean(after_ms):.4f}); "
+                    f"with the cumsum it replaced {before_ms[0]:.4f}, {before_ms[1]:.4f} (mean "
+                    f"{np.mean(before_ms):.4f}), in turns after, before, before, after "
+                    f"[{where}]")
                 r = by_b[b]
                 log(f"[times] spmv replicated B={b}: of its device time {dev_ms:.4f} ms the "
                     f"kernel takes {r['ms'] / dev_ms:.1%} ({r['ms']:.4f} ms), the unit sum "
-                    f"unit_sum {r['sum_ms'] / dev_ms:.1%} ({r['sum_ms']:.4f} ms), "
-                    f"the rest (padding x, unblocking y) "
-                    f"{(dev_ms - r['ms'] - r['sum_ms']) / dev_ms:.1%} [{where}]")
+                    f"unit_sum {r['sum_ms'] / dev_ms:.1%} ({r['sum_ms']:.4f} ms; the cumsum it "
+                    f"replaced {r['cumsum_ms']:.4f} ms, bitwise equal to it: "
+                    f"{'yes' if r['sum_same'] else 'no'}), the rest (padding x, unblocking y) "
+                    f"{(dev_ms - r['ms'] - r['sum_ms']) / dev_ms:.1%}; the spmv inside "
+                    f"deterministic() bitwise the spmv outside it [{where}]")
             else:
                 r = by_b[b]
                 log(f"[times] spmv {ex} B={b}: device {dev_ms:.4f} ms less the replicated "
@@ -2373,7 +2562,7 @@ def phase_times(main: dict, card: dict, device) -> list:
     y = mv(x)
     same = sum(bool(torch.equal(y[j:j + 1], mv(x[j:j + 1]))) for j in range(64))
     log(f"[times] spmv replicated: column j of B=64 bitwise the B=1 spmv for {same} of 64 "
-        f"columns (unit_sum, a cumsum over the units, on CUDA) [{where}]")
+        f"columns (unit_sum, a loop of adds over the units, on CUDA) [{where}]")
     return rows
 
 

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import ArchConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as lm_mod
 from repro_torch.models.moe import MeshCtx
 
@@ -35,9 +36,25 @@ class Model:
 
 
 def build(cfg: ArchConfig) -> Model:
-    """The decoder-only families (dense, vlm, moe, ssm, hybrid). The
-    encoder-decoder family raises ``NotImplementedError``."""
-    lm_mod.check_ported(cfg)
+    """Every family: the encoder-decoder one, whose ``init_state`` reads
+    the batch's ``frontend_embeds`` (frames, which a tokens-only batch
+    lacks: ``KeyError``, as in the reference), and the decoder-only ones
+    (dense, vlm, moe, ssm, hybrid)."""
+    if cfg.family == "encdec":
+
+        def init(generator: torch.Generator, device=None):
+            return encdec_mod.init_encdec(generator, cfg, resolve_device(device))
+
+        def forward(params, batch, ctx: Optional[MeshCtx] = None, remat="none"):
+            return encdec_mod.encdec_forward(params, batch, cfg, ctx, remat=remat)
+
+        def init_state(params, batch, max_len):
+            return encdec_mod.init_encdec_state(params, batch["frontend_embeds"], cfg, max_len)
+
+        def decode_step(params, tokens, state, ctx: Optional[MeshCtx] = None):
+            return encdec_mod.encdec_decode_step(params, tokens, state, cfg, ctx)
+
+        return Model(cfg, init, forward, init_state, decode_step)
 
     def init(generator: torch.Generator, device=None):
         return lm_mod.init_lm(generator, cfg, resolve_device(device))

@@ -1,4 +1,5 @@
-"""GQA/MQA attention with qk-norm, sliding-window and decode paths.
+"""GQA/MQA attention with qk-norm, sliding-window, decode and
+encoder-decoder cross-attention paths.
 
 The JAX package's attention as plain PyTorch products: einsums (the
 projections through :func:`project`) and a masked softmax, or, for long sequences with ``chunked_attn``, an online
@@ -24,6 +25,7 @@ __all__ = [
     "init_attn",
     "attention",
     "decode_attention",
+    "cross_attention",
     "KVCache",
     "init_kv_cache",
     "kv_cache_len",
@@ -216,3 +218,25 @@ def decode_attention(
     o = torch.einsum("bkgst,btkd->bskgd", w, cache.v).reshape(b, 1, h, hd)
     out = project(o, p["wo"], 2)
     return out, KVCache(k=cache.k, v=cache.v, length=pos + 1)
+
+
+def cross_attention(
+    p: Params,
+    x: torch.Tensor,  # [B, S, D] decoder states
+    mem: torch.Tensor,  # [B, T, D] encoder states
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    """Decoder queries over the encoder's states: no mask, no rope, no
+    qk-norm, as in the reference. K and V are projected from ``mem`` at
+    every call."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = project(x, p["wq"])
+    k = project(mem, p["wk"])
+    v = project(mem, p["wv"])
+    groups = h // kv
+    q = q.reshape(b, s, kv, groups, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k) / (hd**0.5)
+    w = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    o = torch.einsum("bkgst,btkd->bskgd", w, v).reshape(b, s, h, hd)
+    return project(o, p["wo"], 2)

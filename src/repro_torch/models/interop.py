@@ -1,9 +1,10 @@
 """Carry language-model weights across packages as numpy arrays.
 
 The JAX package's parameters are a pytree of nested dicts whose
-``layers`` entry stacks every layer's weights on a leading ``[L, ...]``
-axis. ``jax.tree.map(np.asarray, params)`` turns them into numpy, and
-:func:`lm_from_numpy` builds the port's module from that tree;
+``layers`` entry (``enc_layers`` and ``dec_layers`` for the
+encoder-decoder family) stacks every layer's weights on a leading
+``[L, ...]`` axis. ``jax.tree.map(np.asarray, params)`` turns them into
+numpy, and :func:`lm_from_numpy` builds the port's module from that tree;
 :func:`lm_to_numpy` gives the tree back. The tests match the two
 packages through these functions, not by matching their random number
 generators.
@@ -31,7 +32,7 @@ from repro_torch import resolve_device
 from repro_torch.config import ArchConfig
 from repro_torch.models import moe, ssm
 from repro_torch.models.common import Params
-from repro_torch.models.transformer import _dtype, check_ported, padded_vocab
+from repro_torch.models.transformer import _dtype, padded_vocab
 from repro_torch.optim import adamw  # OptState; adamw imports models.common in turn
 
 __all__ = ["params_from_numpy", "lm_from_numpy", "lm_to_numpy", "opt_from_numpy",
@@ -64,29 +65,37 @@ def params_from_numpy(tree: Mapping[str, Any], dtype: torch.dtype, device) -> Pa
     return Params(convert("", tree))
 
 
-def _layer_slice(tree: Mapping[str, Any], i: int, n: int) -> Dict[str, Any]:
+def _layer_slice(tree: Mapping[str, Any], i: int, n: int, where: str) -> Dict[str, Any]:
     out = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
-            out[k] = _layer_slice(v, i, n)
+            out[k] = _layer_slice(v, i, n, f"{where}.{k}")
         else:
             v = np.asarray(v)
             if v.shape[:1] != (n,):
-                raise ValueError(f"layers.{k}: shape {v.shape} does not stack {n} layers")
+                raise ValueError(f"{where}.{k}: shape {v.shape} does not stack {n} layers")
             out[k] = v[i]
     return out
 
 
+def _stacked_lists(cfg: ArchConfig) -> Dict[str, int]:
+    """The JAX tree's stacked entries for ``cfg`` and their layer counts:
+    ``enc_layers`` and ``dec_layers`` for the encoder-decoder family,
+    ``layers`` for the others."""
+    if cfg.family == "encdec":
+        return {"enc_layers": cfg.encoder_layers, "dec_layers": cfg.num_layers}
+    return {"layers": cfg.num_layers}
+
+
 def _unstacked(cfg: ArchConfig, tree: Mapping[str, Any], dtype: torch.dtype, device) -> Params:
-    check_ported(cfg)
     device = resolve_device(device)
-    n = cfg.num_layers
     embed_shape = tuple(np.shape(tree["embed"]))
     if embed_shape != (padded_vocab(cfg), cfg.d_model):
         raise ValueError(f"embed: shape {embed_shape} does not fit {cfg.name}")
-    layers = [_layer_slice(tree["layers"], i, n) for i in range(n)]
-    top = {k: v for k, v in tree.items() if k != "layers"}
-    return params_from_numpy({**top, "layers": layers}, dtype, device)
+    out = dict(tree)
+    for key, n in _stacked_lists(cfg).items():
+        out[key] = [_layer_slice(tree[key], i, n, key) for i in range(n)]
+    return params_from_numpy(out, dtype, device)
 
 
 def lm_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any], device=None) -> Params:

@@ -53,14 +53,6 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port lacks."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"the encoder-decoder family ({cfg.name}) is not ported yet "
-            "(ROADMAP.md, Queue 1, item 8d)")
-
-
 def padded_vocab(cfg: ArchConfig) -> int:
     """Embedding rows, optionally padded to a multiple (vocab_pad_to)."""
     v = cfg.vocab_size
@@ -109,7 +101,6 @@ def _init_layer(generator: torch.Generator, cfg: ArchConfig, dtype, device=None)
 def init_lm(generator: torch.Generator, cfg: ArchConfig, device=None) -> Params:
     """Weights drawn from ``generator`` (on its device) and placed on
     ``device``: the embedding, the layers in order, then the head."""
-    check_ported(cfg)
     dtype = _dtype(cfg)
     embed = embed_init(generator, padded_vocab(cfg), cfg.d_model, dtype, device)
     params = {

@@ -281,10 +281,19 @@ def make_unit_mesh(num_units: int, *, comm: Optional[Communicator] = None) -> Un
 
 def unit_sum(partials: torch.Tensor) -> torch.Tensor:
     """A rank's partial y from its units' stacked partials ``[Lr, NRB,
-    bm(, B)]``, added in ascending unit order in one launch: a scan fixes
-    its order and a sum does not, so this is the last prefix of a
-    ``cumsum`` over the units."""
-    return partials.cumsum(dim=0)[-1].clone()
+    bm(, B)]``, added in ascending unit order by a loop of elementwise
+    adds (a reduction's order is not fixed, and PyTorch has no
+    deterministic floating-point CUDA ``cumsum``, so none is used). Each
+    element's sum is one chain, so column b does not depend on B. A
+    float32 sum runs in float64 on the CPU and in float32 on CUDA, as
+    PyTorch's ``cumsum`` accumulates there, so the result is bitwise the
+    last prefix of ``partials.cumsum(dim=0)``."""
+    on_cpu = partials.device.type == "cpu" and partials.dtype == torch.float32
+    first, *rest = partials.unbind(0)
+    acc = first.to(torch.float64 if on_cpu else partials.dtype, copy=True)
+    for p in rest:
+        acc.add_(p)
+    return acc.to(partials.dtype)
 
 
 def _send_buffer(x_owned: torch.Tensor, send_idx: torch.Tensor, world: int) -> torch.Tensor:

@@ -21,6 +21,7 @@ the caller set it before.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -36,18 +37,33 @@ __all__ = ["loss_fn", "value_and_grad", "make_train_step", "deterministic", "Tra
 TrainState = Tuple[Params, OptState]  # (params, opt_state)
 
 
+_MODE_LOCK = threading.Lock()
+_mode_holders = 0  # blocks inside deterministic(), across threads
+_mode_before: Tuple[bool, bool] = (False, False)
+
+
 @contextlib.contextmanager
 def deterministic() -> Iterator[None]:
-    """``torch.use_deterministic_algorithms(True)`` for the block, the
-    previous setting restored after it. The mode is process-wide: another
-    thread running a model meanwhile runs under it too."""
-    mode = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
+    """``torch.use_deterministic_algorithms(True)`` for the block. The
+    mode is process-wide, so the blocks of all threads share it: the
+    first block to enter saves the setting it found and turns the mode
+    on, and the last to leave restores that setting. Another thread
+    running a model meanwhile runs under the mode too."""
+    global _mode_holders, _mode_before
+    with _MODE_LOCK:
+        if _mode_holders == 0:
+            _mode_before = (torch.are_deterministic_algorithms_enabled(),
+                            torch.is_deterministic_algorithms_warn_only_enabled())
+            torch.use_deterministic_algorithms(True)
+        _mode_holders += 1
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(mode, warn_only=warn_only)
+        with _MODE_LOCK:
+            _mode_holders -= 1
+            if _mode_holders == 0:
+                mode, warn_only = _mode_before
+                torch.use_deterministic_algorithms(mode, warn_only=warn_only)
 
 
 @contextlib.contextmanager
@@ -107,24 +123,33 @@ def make_train_step(
     int8 compression's noise is drawn from it. ``params`` and the state's
     moments are updated in place; the returned state holds the new step.
 
-    Gradient accumulation: the global batch is split into
+    Gradient accumulation: every leaf of the global batch (the tokens,
+    and the frames of the encoder-decoder family) is split into
     ``train_cfg.microbatches`` equal microbatches of consecutive rows, run
     in sequence; their gradients are summed in float32 and divided by the
     count, as are the losses. The metrics are then the reference's:
-    ``ce`` is the mean loss and ``aux`` is 0.
+    ``ce`` is the mean loss and ``aux`` is 0. A batch with a leaf whose
+    rows do not split evenly is refused with ``ValueError`` before any
+    work (the reference's reshape raises ``TypeError`` for it).
     """
 
     def step(params: Params, opt_state: OptState, batch, rng=None):
+        m = train_cfg.microbatches
+        if m > 1:
+            uneven = {k: v.shape[0] for k, v in batch.items() if v.shape[0] % m}
+            if uneven:
+                raise ValueError(f"microbatches={m} does not divide the batch's rows: "
+                                 + ", ".join(f"{k} has {n}" for k, n in uneven.items()))
         with deterministic():
-            m = train_cfg.microbatches
             if m <= 1:
                 loss, metrics, grads = value_and_grad(model, params, batch, ctx, train_cfg)
             else:
-                rows = batch["tokens"].shape[0] // m
+                split = {k: v.reshape(m, v.shape[0] // m, *v.shape[1:])
+                         for k, v in batch.items()}
                 acc: Dict[str, torch.Tensor] = {}
                 loss_sum = None
                 for i in range(m):
-                    micro = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                    micro = {k: v[i] for k, v in split.items()}
                     loss, _, g = value_and_grad(model, params, micro, ctx, train_cfg)
                     for n, gn in g.items():
                         acc[n] = gn.float() if i == 0 else acc[n] + gn.float()

@@ -141,7 +141,8 @@ def _template(cfg):
 
 @pytest.mark.parametrize("arch,dtype", [("qwen3-1.7b", "float32"), ("hymba-1.5b", "float32"),
                                         ("granite-moe-1b-a400m", "float32"),
-                                        ("granite-moe-1b-a400m", "bfloat16")])
+                                        ("granite-moe-1b-a400m", "bfloat16"),
+                                        ("seamless-m4t-medium", "float32")])
 def test_jax_checkpoint_restores_in_the_port(tmp_path, arch, dtype):
     params, opt = _jax_state(arch, dtype)
     RefCheckpointManager(str(tmp_path)).save(2, (params, opt))
@@ -160,7 +161,8 @@ def test_jax_checkpoint_restores_in_the_port(tmp_path, arch, dtype):
 
 
 @pytest.mark.parametrize("arch,dtype", [("qwen3-1.7b", "float32"),
-                                        ("granite-moe-1b-a400m", "bfloat16")])
+                                        ("granite-moe-1b-a400m", "bfloat16"),
+                                        ("seamless-m4t-medium", "float32")])
 def test_port_checkpoint_restores_in_jax(tmp_path, arch, dtype):
     params, opt = _jax_state(arch, dtype)
     cfg = _port_cfg(arch, dtype)

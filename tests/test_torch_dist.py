@@ -132,3 +132,29 @@ def test_hoist_tiles_value_views_match_jax(fn):
         dist.hoist_tiles(tiles, fn, device=CPU).numpy(),
         np.asarray(jx_dist.hoist_tiles(tiles, fn)),
     )
+
+
+@pytest.mark.parametrize("u", [1, 2, 16])
+@pytest.mark.parametrize("b", [1, 8])
+def test_unit_sum_is_the_cumsum_it_replaces(u, b):
+    """``unit_sum`` is bitwise the last prefix of ``cumsum(dim=0)`` (the
+    unit sum before deterministic mode had to accept it) on random
+    partials, and column j of any B is bitwise the B = 1 sum of column j.
+    It runs under ``torch.use_deterministic_algorithms(True)``."""
+    rng = np.random.default_rng(u * 10 + b)
+    partials = torch.as_tensor(
+        (rng.standard_normal((u, 30, 8, b)) * 10.0 ** rng.integers(-3, 4, (u, 30, 8, b)))
+        .astype(np.float32))
+    want = partials.cumsum(dim=0)[-1]
+    got = dist.unit_sum(partials)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    for j in range(b):
+        assert torch.equal(dist.unit_sum(partials[..., j:j + 1].contiguous())[..., 0],
+                           got[..., j])
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        assert torch.equal(dist.unit_sum(partials), want)
+    finally:
+        torch.use_deterministic_algorithms(before)

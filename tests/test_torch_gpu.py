@@ -7,7 +7,8 @@ the first spmv of a lazy load on ``stream``, a patched spmv bitwise the
 cold pack, and a load with no device given taking the card. Then the
 engine killed at each fault point, bitwise its uninterrupted run, and
 the ``shard_map`` executor on an NCCL group of one rank, within 1e-5 of
-the oracle on the golden schedule. Last, the language models: each
+the oracle on the golden schedule, and both executors inside the train
+step's deterministic mode, bitwise the same calls outside it. Last, the language models: each
 family's forward and decode steps on the card within 1e-5 of the CPU's
 on the same weights, and the LM engine's tokens bitwise
 ``greedy_generate``'s on the same batch. Last, training: one step's
@@ -364,6 +365,38 @@ def test_kill_point_matrix_on_the_card(cuda, tmp_path, kill_at):
         assert t0.result.residuals == t1.result.residuals
 
 
+def test_spmv_and_shard_map_run_inside_deterministic(cuda, tmp_path):
+    """The main path's spmv (``simulate``) and the one-rank ``shard_map``
+    step inside the train step's ``deterministic()`` block, on every
+    exchange at B = 1 and 8: no op refuses the mode, and each result is
+    bitwise the same call outside the block; the mode is off again after
+    it."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from repro_torch.train.step import deterministic
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        a = banded_coo(3000, 40000, seed=5)
+        x = np.random.default_rng(5).standard_normal((8, 3000)).astype(np.float32)
+        for exchange in ("replicated", "selective", "overlap:2"):
+            sess = distribute(a, topology=Topology(2, 2), combo="NL-HC", exchange=exchange)
+            outs = {}
+            for inside in (False, True):
+                with deterministic() if inside else contextlib.nullcontext():
+                    assert torch.are_deterministic_algorithms_enabled() == inside
+                    outs[inside] = [sess.spmv(xb, executor=ex) for ex in ("simulate", "shard_map")
+                                    for xb in (x[0], x)]
+            for y_out, y_in in zip(outs[False], outs[True], strict=True):
+                assert np.array_equal(y_out, y_in), exchange
+            assert not torch.are_deterministic_algorithms_enabled()
+    finally:
+        dist.destroy_process_group()
+
+
 def test_shard_map_on_an_nccl_group_of_one(cuda, tmp_path):
     """All units stacked on one rank of an NCCL group: within 1e-5 of
     the float64 oracle on every exchange, single and batched, the
@@ -489,7 +522,7 @@ LM_TOL = 1e-5  # card vs CPU: max |d| / max |logit|, float32, TF32 off
 
 @pytest.mark.parametrize("arch,s", [("qwen3-1.7b", 16), ("h2o-danube-1.8b", 40),
                                     ("mamba2-2.7b", 16), ("hymba-1.5b", 24),
-                                    ("llava-next-34b", 16)])
+                                    ("llava-next-34b", 16), ("seamless-m4t-medium", 16)])
 def test_lm_on_the_card_matches_the_cpu(cuda, arch, s):
     cfg = get_arch(arch).reduced()
     model = build(cfg)
@@ -533,7 +566,16 @@ def test_lm_engine_is_greedy_generate_on_the_card(cuda):
         np.testing.assert_array_equal(np.array(r.out), want[r.rid])
 
 
-TRAIN_ARCHS = ["qwen3-1.7b", "mamba2-2.7b", "hymba-1.5b", "granite-moe-1b-a400m"]
+TRAIN_ARCHS = ["qwen3-1.7b", "mamba2-2.7b", "hymba-1.5b", "granite-moe-1b-a400m",
+               "seamless-m4t-medium"]
+
+
+def _train_batch(cfg, b, s):
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s))}
+    if cfg.frontend:
+        batch["frontend_embeds"] = rng.standard_normal((b, 8, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
@@ -543,7 +585,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     model = build(cfg)
     cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
     card = lm_from_numpy(cfg, lm_to_numpy(cpu), device=cuda)
-    batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16))}
+    batch = _train_batch(cfg, 2, 16)
     loss_c, _, g_c = value_and_grad(model, card, batch, None, TrainConfig())
     loss, _, g = value_and_grad(model, cpu, batch, None, TrainConfig())
     assert abs(float(loss_c) - float(loss)) <= 1e-5 * abs(float(loss))
@@ -560,7 +602,7 @@ def test_train_step_is_deterministic_on_the_card(cuda, arch, remat):
     cfg = get_arch(arch).reduced()
     model = build(cfg)
     p0 = model.init(torch.Generator(device=cuda).manual_seed(0))
-    batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 32))}
+    batch = _train_batch(cfg, 4, 32)
     step = make_train_step(model, TrainConfig(warmup_steps=0, remat=remat))
     outs = []
     for _ in range(2):

@@ -1,8 +1,9 @@
-"""The port stands alone: ``repro_torch`` loads neither JAX nor any module
-of the JAX package, its entry points — the plan store's included — run
-on the card unless the caller asks for the CPU, and the parts ported
-last (the fault runtime, the ``shard_map`` executor, the schedule
-audit) are there and refuse what they cannot do."""
+"""The port stands alone: ``repro_torch``, its examples, ``chip_smoke.py``
+and the card's tests load neither JAX nor any module of the JAX
+package, its entry points — the plan store's included — run on the card
+unless the caller asks for the CPU, and the parts ported last (the
+fault runtime, the ``shard_map`` executor, the schedule audit) are there
+and refuse what they cannot do."""
 import ast
 import os
 import subprocess
@@ -38,7 +39,17 @@ PORT_FILES = sorted(
     for dirpath, _, files in os.walk(os.path.join(REPO, "src", "repro_torch"))
     for fn in files
     if fn.endswith(".py")
-) + [os.path.join(REPO, "chip_smoke.py")]
+) + sorted(
+    os.path.join(REPO, "examples", fn)
+    for fn in os.listdir(os.path.join(REPO, "examples"))
+    if fn.endswith("_torch.py")
+) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "test_torch_gpu.py")]
+# Files of the port that the isolation checks must find (a rename would
+# otherwise drop them from the list silently).
+NAMED = ("src/repro_torch/models/encdec.py", "examples/quickstart_torch.py",
+         "examples/pmvc_cluster_torch.py", "examples/serve_sparse_torch.py",
+         "examples/train_lm_torch.py", "examples/serve_lm_torch.py",
+         "tests/test_torch_gpu.py", "chip_smoke.py")
 
 
 def test_import_loads_no_jax_and_no_reference_module():
@@ -69,6 +80,10 @@ def test_import_loads_no_jax_and_no_reference_module():
         timeout=120, check=True,
     )
     assert out.stdout.strip() == ""
+
+
+def test_the_isolation_checks_cover_the_named_files():
+    assert set(NAMED) <= {os.path.relpath(p, REPO) for p in PORT_FILES}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, REPO))
@@ -189,7 +204,7 @@ def test_unported_serving_parts_say_so(tmp_path):
                                     "repro_torch.models", "repro_torch.serve.engine",
                                     "repro_torch.optim", "repro_torch.train",
                                     "repro_torch.checkpoint", "repro_torch.core.expert_placement",
-                                    "repro_torch.models.moe"])
+                                    "repro_torch.models.moe", "repro_torch.models.encdec"])
 def test_last_ported_parts_import_alone_without_jax(module):
     """The fault runtime, the executor registry with ``shard_map`` and
     the schedule audit, each imported alone in a fresh interpreter, load

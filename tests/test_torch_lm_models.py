@@ -2,8 +2,8 @@
 family, on the same weights (carried across with ``lm_from_numpy``):
 the teacher-forced forward and a sequence of decode steps, at 1e-4 of
 the largest |logit| in float32 and at the reference's 2e-2 in bf16.
-Then the reference's own smoke tests on the port, and the family the
-port does not have yet (encoder-decoder) refusing to build."""
+Then the reference's own smoke tests on the port, every family
+(the encoder-decoder one's parity is in tests/test_torch_encdec.py)."""
 import dataclasses
 
 import jax
@@ -110,7 +110,7 @@ def test_bf16_hybrid_matches_the_reference():
 # tests/test_models_smoke.py on the port, for the families it has.
 
 
-@pytest.mark.parametrize("arch", [a for a, _ in FAMILIES])
+@pytest.mark.parametrize("arch", [a for a, _ in FAMILIES] + ["seamless-m4t-medium"])
 def test_forward_shapes_no_nans(arch):
     cfg = get_arch(arch).reduced()
     model = build(cfg)
@@ -123,7 +123,8 @@ def test_forward_shapes_no_nans(arch):
     assert not bool(torch.isnan(aux))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "h2o-danube-1.8b", "mamba2-2.7b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "h2o-danube-1.8b", "mamba2-2.7b", "hymba-1.5b",
+                                  "seamless-m4t-medium"])
 def test_decode_consistency(arch):
     """Teacher-forced forward == step-by-step decode (per family)."""
     cfg = get_arch(arch).reduced()
@@ -151,12 +152,6 @@ def test_init_is_deterministic_per_seed():
     assert not torch.equal(pa["layers.0.attn.wq"], pc["layers.0.attn.wq"])
     assert pa["layers.1.ssm.a_log"].dtype == torch.float32
     assert not any(p.requires_grad for p in a.parameters())
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
-def test_families_not_ported_refuse_to_build(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8d"):
-        build(get_arch(arch).reduced())
 
 
 def test_options_not_ported_say_so():

@@ -80,7 +80,8 @@ def _exact_norm(grads):
     return float(np.sqrt(sum((a.astype(np.float64) ** 2).sum() for a in _paths(grads).values())))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "hymba-1.5b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "hymba-1.5b", "granite-moe-1b-a400m",
+                                  "seamless-m4t-medium"])
 def test_global_norm_matches_the_reference(arch):
     """Within 1e-6 of the float64 norm. The reference's float32 sum of a
     65,536-element leaf (granite's experts) is 1e-5 off it, so the two
@@ -103,12 +104,14 @@ def test_stacked_groups_follow_the_reference_leaf_order():
 
 
 # (arch, weight decay, grad clip): hymba's per-block norms, beta_* and SSD
-# vectors are 1-D here and 2-D in the reference's stacked tree, so decay
-# that followed the port's per-block rank would leave them undecayed; the
-# clip of 1.0 is active on these gradients, 100.0 is not.
+# vectors (and seamless's encoder and decoder norms) are 1-D here and 2-D
+# in the reference's stacked trees, so decay that followed the port's
+# per-block rank would leave them undecayed; the clip of 1.0 is active on
+# these gradients, 100.0 is not.
 @pytest.mark.parametrize("arch,wd,clip", [("hymba-1.5b", 0.1, 1.0), ("hymba-1.5b", 0.1, 100.0),
                                           ("qwen3-1.7b", 0.3, 1.0),
-                                          ("granite-moe-1b-a400m", 0.1, 1.0)])
+                                          ("granite-moe-1b-a400m", 0.1, 1.0),
+                                          ("seamless-m4t-medium", 0.1, 1.0)])
 def test_opt_update_matches_the_reference_per_leaf(arch, wd, clip):
     cfg, tree, grads = _lm(arch)
     kw = dict(learning_rate=1e-2, warmup_steps=1, total_steps=6, weight_decay=wd, grad_clip=clip)
@@ -144,6 +147,9 @@ def test_opt_update_matches_the_reference_per_leaf(arch, wd, clip):
     if wd and arch == "hymba-1.5b":
         norm1 = _paths(lm_to_numpy(params))["layers/norm1"]
         assert np.abs(norm1 - 1.0).max() > 1e-3
+    if wd and arch == "seamless-m4t-medium":
+        for key in ("enc_layers/norm1", "dec_layers/norm_x"):
+            assert np.abs(_paths(lm_to_numpy(params))[key] - 1.0).max() > 1e-3, key
 
 
 def test_int8_quantizer_on_jax_noise_one_scale_per_stacked_leaf():

@@ -4,8 +4,8 @@
 relative, each gradient leaf within 1e-4 of that leaf's max |g|), the
 remat modes bitwise equal to ``"none"`` within the port (and ``"dots"``
 saving exactly the products without a batch dimension), two microbatches
-against the JAX step, and ``tests/test_models_smoke.py``'s train step on
-every family the port has."""
+against the JAX step (a batch whose rows do not split refused by both),
+and ``tests/test_models_smoke.py``'s train step on every family."""
 import dataclasses
 
 import jax
@@ -34,10 +34,10 @@ LOSS_TOL = 1e-5  # |port - ref| / |ref|
 GRAD_TOL = 1e-4  # max |port - ref| / max |ref|, per gradient leaf
 B = 2
 
-# (arch, sequence length, config changes): every family the port has;
-# h2o's 40 positions reach past its window of 16, hymba's 24 past its
-# SWA window; granite-8b with an untied head over a padded vocabulary,
-# hymba through the chunked online softmax.
+# (arch, sequence length, config changes): every family; h2o's 40
+# positions reach past its window of 16, hymba's 24 past its SWA window;
+# granite-8b with an untied head over a padded vocabulary, hymba through
+# the chunked online softmax; seamless with 8 frames.
 FAMILIES = [
     ("qwen3-1.7b", 16, {}),
     ("h2o-danube-1.8b", 40, {}),
@@ -48,6 +48,7 @@ FAMILIES = [
     ("moonshot-v1-16b-a3b", 16, {"moe_sort_dispatch": True}),
     ("granite-8b", 16, {"tie_embeddings": False, "vocab_pad_to": 96}),
     ("hymba-1.5b", 24, {"chunked_attn": True, "attn_chunk": 8}),
+    ("seamless-m4t-medium", 16, {}),
 ]
 
 
@@ -104,7 +105,7 @@ def test_loss_and_gradients_match_the_reference(arch, s, kw):
     assert not any(w.requires_grad for w in params.parameters())
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m", "seamless-m4t-medium"])
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_remat_gradients_match_the_reference(arch, remat):
     (ref_model, ref_params), (model, params) = _pair(arch)
@@ -119,7 +120,8 @@ def test_remat_gradients_match_the_reference(arch, remat):
 
 
 @pytest.mark.parametrize("arch,s", [("qwen3-1.7b", 16), ("granite-moe-1b-a400m", 16),
-                                    ("mamba2-2.7b", 16), ("hymba-1.5b", 24)])
+                                    ("mamba2-2.7b", 16), ("hymba-1.5b", 24),
+                                    ("seamless-m4t-medium", 16)])
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_remat_is_bitwise_none(arch, s, remat):
     cfg = get_arch(arch).reduced()
@@ -178,9 +180,10 @@ def test_unknown_remat_is_refused():
         model.forward(params, _batch(cfg, 8), remat="some")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m", "seamless-m4t-medium"])
 def test_microbatches_match_the_reference_step(arch):
-    """Two microbatches through the port's step and the JAX step: the
+    """Two microbatches through the port's step and the JAX step (the
+    frames of seamless split with the tokens): the
     loss and gradient norm within 1e-5, the moments (linear and quadratic
     in the accumulated gradient) within 1e-4 of each leaf's max, the
     weights within tests/test_train_loop.py's microbatch tolerance."""
@@ -223,12 +226,10 @@ def test_microbatch_equivalence():
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-2, atol=2e-4)
 
 
-# tests/test_models_smoke.py's train step on the port: every family but
-# the encoder-decoder one (Queue 1, item 8d).
+# tests/test_models_smoke.py's train step on the port: every family.
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if ref_get_arch(a).family != "encdec"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_train_step_no_nans(arch):
     cfg = get_arch(arch).reduced()
     model = build(cfg)
@@ -245,3 +246,128 @@ def test_train_step_no_nans(arch):
     moved = [float((a.float() - b.float()).abs().max())
              for a, b in zip(before.parameters(), params2.parameters())]
     assert max(moved) > 0
+
+
+@pytest.mark.parametrize("rows,refused", [(5, True), (4, False)])
+def test_uneven_microbatches_are_refused_before_any_work(rows, refused):
+    """microbatches=2 over a rows x 16 batch: 5 rows are refused by both
+    packages (the reference's reshape raises TypeError, the port a
+    ValueError before any forward, the weights untouched); 4 rows give
+    the loss and gradients of the two halves, each through the step's
+    own value_and_grad."""
+    (ref_model, ref_params), (model, params) = _pair("qwen3-1.7b")
+    batch = _batch(model.cfg, 16, seed=5, b=rows)
+    kw = dict(total_steps=10, warmup_steps=0, microbatches=2, learning_rate=1e-3)
+    forwards = []
+
+    def counted(*args, **kwargs):
+        forwards.append(1)
+        return model.forward(*args, **kwargs)
+
+    spy = dataclasses.replace(model, forward=counted)
+    before = params.map(lambda _, w: w.clone())
+    step = make_train_step(spy, TrainConfig(**kw))
+    if refused:
+        ref_step = ref_make_train_step(ref_model, RefTrainConfig(**kw))
+        with pytest.raises(TypeError):
+            ref_step(ref_params, ref_init_opt(ref_params),
+                     {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(4))
+        with pytest.raises(ValueError, match="tokens has 5"):
+            step(params, init_opt(params), batch)
+        assert forwards == []
+        assert all(torch.equal(a, b) for a, b in zip(before.parameters(), params.parameters()))
+        return
+    halves = [value_and_grad(model, before, {k: v[i:i + 2] for k, v in batch.items()}, None,
+                             TrainConfig(**kw)) for i in (0, 2)]
+    _, _, metrics = step(params, init_opt(params), batch)
+    assert len(forwards) == 2
+    two = torch.tensor(2.0)
+    assert torch.equal(metrics["loss"], (halves[0][0] + halves[1][0]) / two)
+    norm = torch.sqrt(sum(((halves[0][2][n].float() + halves[1][2][n].float()) / two)
+                          .double().square().sum() for n in halves[0][2]))
+    assert abs(float(metrics["grad_norm"]) - float(norm)) <= 1e-6 * float(norm)
+
+
+def test_deterministic_blocks_nest_and_overlap_across_threads():
+    """Nested blocks, and blocks of two threads that overlap in either
+    order, keep the mode on until the last one leaves, then restore what
+    the first one found (warn-only included)."""
+    import threading
+
+    from repro_torch.train.step import deterministic
+
+    def mode():
+        return (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled())
+
+    before = mode()
+    try:
+        for found in ((False, False), (True, True)):
+            torch.use_deterministic_algorithms(found[0], warn_only=found[1])
+            with deterministic():
+                with deterministic():
+                    assert mode() == (True, False)
+                assert mode() == (True, False)
+            assert mode() == found
+            for first_out in ("main", "worker"):
+                entered, release, left = (threading.Event() for _ in range(3))
+                seen = []
+
+                def worker():
+                    with deterministic():
+                        entered.set()
+                        release.wait(10)
+                        seen.append(mode())
+                    left.set()
+
+                t = threading.Thread(target=worker)
+                with deterministic():
+                    t.start()
+                    assert entered.wait(10)
+                    if first_out == "worker":
+                        release.set()
+                        assert left.wait(10)
+                    seen.append(mode())
+                if first_out == "main":
+                    seen.append(mode())  # the worker is still inside its block
+                    release.set()
+                t.join(10)
+                assert all(m == (True, False) for m in seen), seen
+                assert mode() == found
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def test_deterministic_holds_under_many_threads():
+    """32 threads enter and leave ``deterministic()`` 100 times each with
+    a short switch interval: every block sees the mode on, and the mode
+    found before is back after the last one leaves."""
+    import sys
+    import threading
+
+    from repro_torch.train.step import deterministic
+
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    off = []
+
+    def worker():
+        for _ in range(100):
+            with deterministic():
+                if not torch.are_deterministic_algorithms_enabled():
+                    off.append(1)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert off == []
+    assert (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled()) == before
