@@ -161,7 +161,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    last a checkpoint of qwen3-1.7b at full width cut to 2 layers (about
    4.9 GB of npz): a blocking save, a restore (bitwise), an async save
    and the stall it puts on the next step;
-12. **times** — each kernel's time per launch at its path's shapes
+12. **launch** — the launch layer (``repro_torch.launch``,
+   ``repro_torch.roofline``), which calls no kernel of the port (the three
+   launch counters, set to 0 at its start, must stay 0): on a one-rank
+   NCCL ``(data, model) = (1, 1)`` mesh (a file store), qwen3-1.7b and
+   granite-moe-1b-a400m (``moe_a2a`` and ``act_anchor`` on) uncut in
+   float32, weights from ``--seed``: step one's loss and gradients on the
+   mesh within 1e-5 / 1e-4 of the meshless step (bitwise or not printed),
+   then 8 steps of the meshless step and of the driver's ``train`` at its
+   8 x 64 tokens (granite at ``[lm train]``'s learning rate: at the
+   driver's 3e-3 its loss rises), the step wall p50 of each printed and
+   the loss on step 0's batch falling; the driver with its checkpoints at
+   reduced size, a second run on the directory restoring the last one
+   bitwise (uncut, a float32 tree and its moments is 20.7 GB a save);
+   ``reshard_tree`` with ``P("model")`` and ``elastic_restart`` from a
+   checkpoint, bitwise; the dry-run of qwen3-1.7b ``train_4k`` on the
+   production 16 x 16 mesh (a fake group of 256 ranks, meta tensors) in a
+   process of its own with its own time limit, its terms on the card's
+   constants; and ``step_costs`` of ``[lm train]``'s bf16 qwen3 step, its
+   compute and memory terms beside the step time ``[lm train]`` measured;
+13. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, the ``simt`` variant's time
    at the same shapes (the kernels of the previous slices, compared within
@@ -203,12 +222,13 @@ SPMV_BATCHES = (1, 8, 64)
 # Tolerances are relative to the result's scale: max |y - y_ref| / max |y_ref|.
 TOL_F32 = 1e-5  # kernel vs plain, and spmv vs the float64 CSR oracle
 TOL_F16 = 2e-2  # float16 tiles and x, float32 accumulation
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
-# float32 FLOP/s outside the tensor cores, and dense bf16 FLOP/s on the
-# tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
+# Published peaks of one H100 SXM (NVIDIA data sheet, at 700 W): HBM
+# bytes/s, float32 FLOP/s outside the tensor cores, and dense bf16 FLOP/s
+# on the tensor cores — repro_torch.roofline.hw's, the one copy of them.
+from repro_torch.roofline.hw import HBM_BW as PEAK_BYTES_PER_S  # noqa: E402
+from repro_torch.roofline.hw import PEAK_FLOPS_BF16 as PEAK_BF16_FLOPS  # noqa: E402
+from repro_torch.roofline.hw import PEAK_FLOPS_F32 as PEAK_F32_FLOPS  # noqa: E402
+from repro_torch.roofline.hw import LINK_BW  # noqa: E402
 # Tile shapes of the stream variant (bm, bn <= 32), then of simt, from
 # kernels/spmv/ops.py's BLOCK_SIZES; then shapes off that grid, at fewer
 # batch widths: (24, 16) on stream, the others on simt.
@@ -319,6 +339,38 @@ TRAIN_LR = 3e-4  # TrainConfig's default; at 1e-3 granite-moe's loss rose over 1
 # The checkpoint's cost: qwen3-1.7b at full width cut to 2 layers (the
 # embedding's 311 M parameters dominate: about 4.9 GB of npz).
 CKPT_LAYERS = 2
+# The [launch] phase: repro_torch.launch on the card. The train driver at its
+# defaults (src/repro/launch/train.py: 8 sequences of 64 tokens a step, lr
+# 3e-3) for LAUNCH_STEPS steps on a one-rank NCCL (data, model) = (1, 1) mesh,
+# each arch uncut, in float32 so that the train gates (TRAIN_LOSS_TOL,
+# TRAIN_GRAD_TOL) hold step one against the meshless step, with the options
+# named beside it. Uncut, the driver runs without checkpoints: a whole
+# float32 tree with its moments is 20.7 GB (qwen3), four saves a run, some
+# 83 GB of disk writes for a smoke run; its checkpoints run at .reduced() size
+# (LAUNCH_CKPT_ARCH). granite-moe trains at [lm train]'s TRAIN_LR: at the
+# driver's 3e-3 its loss on step 0's batch rose from 11.3902 to 12.5890 over
+# the 8 steps on an H100 80GB HBM3 at 700 W, as [lm train] saw at 1e-3.
+LAUNCH_ARCHS = (("qwen3-1.7b", {}, 3e-3),
+                ("granite-moe-1b-a400m", {"moe_a2a": True, "act_anchor": True}, TRAIN_LR))
+LAUNCH_STEPS, LAUNCH_SEQ, LAUNCH_BATCH = 8, 64, 8
+LAUNCH_CKPT_ARCH = "qwen3-1.7b"
+# The driver's LAUNCH_STEPS losses against the meshless steps' on the same
+# weights and batches, max |mesh - meshless| / |meshless|: this gates the
+# update on the mesh (clip, AdamW over DTensors), which step one's loss and
+# gradients do not reach.
+LAUNCH_LOSS_TOL = 2e-4
+# Step one's updated leaves on the mesh against the meshless step's: the
+# share of entries (of the whole tree) off by more than LAUNCH_UPDATE_ATOL
+# times the step's lr. Not a max: Adam's first update is about lr times
+# each gradient entry's sign, and an entry near 0 whose sign rounds the
+# other way moves by 2 lr.
+LAUNCH_UPDATE_ATOL, LAUNCH_UPDATE_SHARE = 1e-3, 1e-3
+# The dry-run's cells on the production (16, 16) mesh (a fake group of 256
+# ranks, meta tensors), in one process of their own with its own time
+# limit: a train step, a decode step and the SSD's train step.
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "decode_32k"),
+                ("mamba2-2.7b", "train_4k"))
+DRYRUN_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -2152,12 +2204,13 @@ def split_step_ms(model, params, state, batch, tc) -> tuple:
 
 
 def lm_train_full_width(arch: str, seed: int, device, where: str,
-                        remats=("none", "full", "dots"), trained=("none",)) -> None:
+                        remats=("none", "full", "dots"), trained=("none",)) -> dict:
     """``arch`` uncut in bf16, weights from ``seed``: ``make_batch``'s
     batches of TRAIN_BATCH x TRAIN_SEQ tokens (SyntheticStream's, and
     frames for a frontend) under each remat mode; the step time split,
     tokens/s, MFU, peak memory; under each mode of ``trained`` (the first
-    of ``remats`` among them) TRAIN_STEPS steps must lower the loss."""
+    of ``remats`` among them) TRAIN_STEPS steps must lower the loss.
+    Returns the step's ms (CUDA events) by remat mode."""
     from repro_torch.config import ShapeConfig, TrainConfig, get_arch
     from repro_torch.data import make_batch
     from repro_torch.models import build
@@ -2269,6 +2322,7 @@ def lm_train_full_width(arch: str, seed: int, device, where: str,
         torch.cuda.empty_cache()
     log(f"[lm train] {arch} step ms by remat: " + ", ".join(
         f"{k} {v:.1f}" for k, v in rows.items()) + f" [{where}]")
+    return rows
 
 
 def lm_train_loops(seed: int, device) -> None:
@@ -2387,11 +2441,11 @@ def phase_lm_train(card: dict, seed: int, device) -> None:
     counters = (bell_spmm, grouped_matmul, flash_attention)
     for k in counters:
         k.launches = 0
-    parts = {}
+    parts, step_ms = {}, {}
     lm_train_card_vs_cpu(seed, device)
     parts["card vs CPU"] = time.perf_counter() - t_phase
     for arch in TRAIN_ARCHS:
-        lm_train_full_width(arch, seed, device, where)
+        step_ms[arch] = lm_train_full_width(arch, seed, device, where)
         parts[arch] = time.perf_counter() - t_phase - sum(parts.values())
     lm_train_full_width(ENCDEC_ARCH, seed, device, where, TRAIN_ENCDEC_REMATS,
                         trained=TRAIN_ENCDEC_REMATS)
@@ -2407,9 +2461,311 @@ def phase_lm_train(card: dict, seed: int, device) -> None:
         f"{launched}: the train path calls no kernel of the port, as the reference's calls no "
         f"Pallas kernel")
     torch.cuda.empty_cache()
+    return step_ms
 
 
-# -- phase 12: times ---------------------------------------------------------
+# -- phase 12: launch --------------------------------------------------------
+
+
+def launch_train(arch: str, opts: dict, lr: float, mesh, seed: int, device, where: str) -> dict:
+    """``arch`` uncut in float32 with ``opts``, weights from ``seed``:
+    step one's loss and gradients on the mesh against the meshless step
+    within the train gates (bitwise or not printed) and its updated leaves
+    (LAUNCH_UPDATE_SHARE), then LAUNCH_STEPS
+    steps of the meshless ``make_train_step`` and of the driver's
+    ``train`` (TrainLoop, no checkpoints at this size) on the same
+    weights and batches, each step's wall p50 printed; the driver's losses
+    must be the meshless steps' within LAUNCH_LOSS_TOL, and its loss on
+    step 0's batch must fall."""
+    import tempfile
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.launch.mesh import batch_axes_of
+    from repro_torch.launch.shardings import batch_shardings, param_shardings, place
+    from repro_torch.launch.train import train
+    from repro_torch.models import MeshCtx, build
+    from repro_torch.models.moe import mesh_scope
+    from repro_torch.optim import init_opt
+    from repro_torch.train import loss_fn, make_train_step
+    from repro_torch.train.step import value_and_grad
+
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32", **opts)
+    model = build(cfg)
+    ctx = MeshCtx(mesh, batch_axes_of(mesh))
+    # The driver's TrainConfig (src/repro/launch/train.py), at ``lr``.
+    tc = TrainConfig(total_steps=LAUNCH_STEPS, warmup_steps=max(LAUNCH_STEPS // 10, 1),
+                     learning_rate=lr, checkpoint_every=max(LAUNCH_STEPS // 2, 1))
+    dc = DataConfig(cfg.vocab_size, seq_len=LAUNCH_SEQ, global_batch=LAUNCH_BATCH, seed=0)
+    batches = [{"tokens": torch.as_tensor(SyntheticStream(dc, start_step=s).batch_at(s),
+                                          device=device)} for s in range(LAUNCH_STEPS)]
+    params = model.init(torch.Generator(device=device).manual_seed(seed), device=device)
+
+    def clone(p):
+        return p.map(lambda _, w: w.detach().clone())
+
+    # Step one's loss and gradients, meshless and on the mesh.
+    t0 = time.perf_counter()
+    loss_ref, _, grads_ref = value_and_grad(model, params, batches[0], None, tc)
+    placed = place(clone(params), param_shardings(params, cfg, mesh))
+    batch0 = place(batches[0], batch_shardings(batches[0], mesh))
+    with mesh_scope(ctx):
+        loss_mesh, _, grads_mesh = value_and_grad(model, placed, batch0, ctx, tc)
+        loss_mesh = loss_mesh.full_tensor()
+        grads_mesh = {n: g.full_tensor() for n, g in grads_mesh.items()}
+    first_s = time.perf_counter() - t0
+    loss_err = abs(float(loss_mesh) - float(loss_ref)) / abs(float(loss_ref))
+    errs = {n: float((grads_mesh[n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+            for n, g in grads_ref.items()}
+    worst = max(errs, key=errs.get)
+    bitwise = torch.equal(loss_mesh, loss_ref) and all(
+        torch.equal(grads_mesh[n], grads_ref[n]) for n in grads_ref)
+    check(loss_err <= TRAIN_LOSS_TOL and errs[worst] <= TRAIN_GRAD_TOL,
+          f"[launch] {arch}: step one on the mesh off the meshless step: loss {loss_err:.2e}, "
+          f"gradient {worst} {errs[worst]:.2e}")
+    del grads_mesh, grads_ref
+    # Step one's update on the mesh: the clip and AdamW over DTensors.
+    placed, _, _ = make_train_step(model, tc, ctx)(placed, init_opt(placed), batch0)
+    torch.cuda.empty_cache()
+
+    # LAUNCH_STEPS meshless steps, then the driver on the mesh.
+    ref, state = clone(params), None
+    state = init_opt(ref)
+    step = make_train_step(model, tc)
+    walls, losses_ref = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, state, m = step(ref, state, b)
+        losses_ref.append(float(m["loss"]))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+        if placed is not None:  # step one's updated leaves, mesh against meshless
+            lr_1 = float(m["lr"])
+            mesh_w = dict(placed.named_parameters())
+            moved = total = 0
+            for n, w in ref.named_parameters():
+                off = (mesh_w[n].full_tensor() - w).abs()
+                moved += int((off > LAUNCH_UPDATE_ATOL * lr_1).sum())
+                total += off.numel()
+            update_share = moved / total
+            placed = mesh_w = off = None
+            check(update_share <= LAUNCH_UPDATE_SHARE,
+                  f"[launch] {arch}: step one's update on the mesh off the meshless one in "
+                  f"{update_share:.2e} of the entries (limit {LAUNCH_UPDATE_SHARE:.0e})")
+    del ref, state, step
+    torch.cuda.empty_cache()
+    log(f"[launch] {arch}: step one mesh against meshless {first_s:.1f} s, {LAUNCH_STEPS} "
+        f"meshless steps {sum(walls):.1f} s")
+    t0 = time.perf_counter()
+    res = train(cfg, mesh, steps=LAUNCH_STEPS, seq=LAUNCH_SEQ, batch=LAUNCH_BATCH,
+                ckpt_dir=None, device=device, params=clone(params), learning_rate=lr)
+    driver_s = time.perf_counter() - t0
+    hist = res.metrics_history
+    losses = [h["loss"] for h in hist]
+    with torch.no_grad():
+        before = float(loss_fn(model, params, batches[0], None, tc)[0])
+        trained = res.params.map(lambda _, w: w.full_tensor())
+        after = float(loss_fn(model, trained, batches[0], None, tc)[0])
+    drift = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_ref))
+    p50_mesh = float(np.median([h["sec"] for h in hist[1:]])) * 1e3
+    p50_ref = float(np.median(walls[1:])) * 1e3
+    log(f"[launch] {arch} uncut float32 {opts or ''} on the (1, 1) NCCL mesh: step one loss "
+        f"{float(loss_ref):.6f}, mesh off meshless by {loss_err:.2e} (loss) and {errs[worst]:.2e} "
+        f"(worst gradient leaf, {worst}); {'bitwise' if bitwise else 'not bitwise'}; its update "
+        f"off by more than {LAUNCH_UPDATE_ATOL:.0e} x lr in {update_share:.2e} of the entries "
+        f"(limit {LAUNCH_UPDATE_SHARE:.0e}); lr {lr}; "
+        f"{first_s:.1f} s for both (DTensor's first dispatch of each op included)")
+    log(f"[launch] {arch}: driver {LAUNCH_STEPS} steps of {LAUNCH_BATCH} x {LAUNCH_SEQ} tokens "
+        f"in {driver_s:.1f} s (first step {hist[0]['sec']:.2f} s); loss "
+        + " ".join(f"{v:.4f}" for v in losses) + f"; meshless steps' losses off by "
+        f"{drift:.2e} at most (limit {LAUNCH_LOSS_TOL:.0e}); loss on "
+        f"step 0's batch {before:.4f} -> {after:.4f}; step wall p50 {p50_mesh:.1f} ms on the mesh "
+        f"(DTensor dispatch) against {p50_ref:.1f} ms meshless, steps 2 to {LAUNCH_STEPS}, "
+        f"host clock [{where}]")
+    check(len(hist) == LAUNCH_STEPS and all(np.isfinite(losses)),
+          f"[launch] {arch}: the driver ran {len(hist)} steps, losses {losses}")
+    check(drift <= LAUNCH_LOSS_TOL, f"[launch] {arch}: the driver's losses off the meshless "
+          f"steps' by {drift:.2e} (limit {LAUNCH_LOSS_TOL:.0e})")
+    check(after < before, f"[launch] {arch}: loss on step 0's batch {before:.4f} -> {after:.4f} "
+          f"after {LAUNCH_STEPS} driver steps did not fall")
+    del params, trained, res
+    torch.cuda.empty_cache()
+    return {"p50_mesh_ms": p50_mesh, "p50_ms": p50_ref, "driver_s": driver_s, "drift": drift,
+            "update_share": update_share}
+
+
+def launch_checkpoints(mesh, device, where: str) -> None:
+    """The driver with its checkpoints, at LAUNCH_CKPT_ARCH's .reduced()
+    size: LAUNCH_STEPS steps, then again on the same directory, which
+    restores the last checkpoint and runs no step, as the reference's
+    loop does."""
+    import tempfile
+
+    from repro_torch.config import get_arch
+    from repro_torch.launch.train import train
+
+    cfg = get_arch(LAUNCH_CKPT_ARCH).reduced()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        res = train(cfg, mesh, steps=LAUNCH_STEPS, seq=LAUNCH_SEQ, batch=LAUNCH_BATCH,
+                    ckpt_dir=d, device=device)
+        run_s = time.perf_counter() - t0
+        saved = sorted(os.listdir(d))
+        again = train(cfg, mesh, steps=LAUNCH_STEPS, seq=LAUNCH_SEQ, batch=LAUNCH_BATCH,
+                      ckpt_dir=d, device=device)
+    same = all(torch.equal(a.full_tensor(), b.full_tensor())
+               for a, b in zip(res.params.parameters(), again.params.parameters()))
+    check(len(res.metrics_history) == LAUNCH_STEPS and not again.metrics_history and same
+          and again.final_step == LAUNCH_STEPS,
+          f"[launch] the driver's checkpoints: {saved}, a second run restored step "
+          f"{again.final_step} with {len(again.metrics_history)} steps")
+    log(f"[launch] the driver with checkpoints ({LAUNCH_CKPT_ARCH} reduced): {LAUNCH_STEPS} "
+        f"steps in {run_s:.1f} s, checkpoints {saved}; a second run on the directory restored "
+        f"step {again.final_step} bitwise and ran no step [{where}]")
+
+
+def launch_placement(mesh, seed: int) -> None:
+    """``reshard_tree`` with ``P("model")`` on the one-rank mesh, a
+    checkpoint, then ``elastic_restart`` onto the mesh: ``np.asarray``
+    bitwise the tree, the leaves DTensors of the spec's placements."""
+    import tempfile
+
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import elastic_restart, reshard_tree
+    from repro_torch.runtime.elastic import P
+
+    rng = np.random.default_rng(seed)
+    tree = {"w": rng.standard_normal((4096, 4096)).astype(np.float32),
+            "b": rng.standard_normal(4096).astype(np.float32)}
+
+    def spec(key, leaf):
+        return P("model") if np.ndim(leaf) == 2 else P()
+
+    placed = reshard_tree(tree, mesh, spec)
+    check(isinstance(placed["w"], DTensor) and placed["w"].placements[1] == Shard(0)
+          and placed["w"].to_local().is_cuda,
+          f"[launch] reshard_tree placed {type(placed['w']).__name__}")
+    check(np.array_equal(np.asarray(placed["w"]), tree["w"]), "[launch] reshard_tree not bitwise")
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(3, placed)
+        restored, step = elastic_restart(mgr, tree, mesh, spec)
+    check(step == 3 and all(np.array_equal(np.asarray(restored[k]), tree[k]) for k in tree),
+          "[launch] elastic_restart is not bitwise the tree")
+    log(f"[launch] placement: reshard_tree with P('model') on the one-rank mesh, a checkpoint, "
+        f"elastic_restart: bitwise, {restored['w'].placements} on {restored['w'].device}")
+
+
+def launch_dryrun(where: str) -> None:
+    """The dry-run's DRYRUN_CELLS on the production (16, 16) mesh, in a
+    process of their own (a fake group of 256 ranks, meta tensors) with
+    its own time limit; their terms on the card's constants."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch import dryrun\n"
+            f"for arch, shape in {DRYRUN_CELLS!r}:\n"
+            "    cell = dryrun.run_cell(arch, shape)\n"
+            "    print(json.dumps({k: v for k, v in cell.items() if k != 'trace'}), flush=True)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"[launch] the dry-run failed: {out.stdout[-1500:]} "
+          f"{out.stderr[-1500:]}")
+    cells = [json.loads(line) for line in out.stdout.strip().splitlines()
+             if line.startswith("{")]
+    check(len(cells) == len(DRYRUN_CELLS), f"[launch] the dry-run wrote {len(cells)} cells")
+    for cell in cells:
+        check(cell["status"] == "ok", f"[launch] dry-run of {cell['arch']} {cell['shape']}: "
+              f"{cell['status']} {cell.get('error', '')}")
+        log(f"[launch] dry-run {cell['arch']} {cell['shape']} {cell['mesh']} ({cell['chips']} "
+            f"fake ranks, meta tensors, full depth): the counted step {cell['compile_s']} s; per "
+            f"device {cell['flops_per_device']:.4g} FLOPs, {cell['bytes_per_device']:.4g} bytes, "
+            f"{cell['collective_bytes_per_device']:.4g} collective wire bytes "
+            f"{cell['collective_counts']}; terms compute {cell['compute_term_s']:.4g} s, memory "
+            f"{cell['memory_term_s']:.4g} s, collective {cell['collective_term_s']:.4g} s at "
+            f"{PEAK_BF16_FLOPS:.3g} FLOP/s, {PEAK_BYTES_PER_S:.3g} B/s HBM, "
+            f"{LINK_BW:.3g} B/s NVLink; dominant {cell['dominant']}, mfu {cell['mfu']:.4f}, "
+            f"useful FLOP ratio {cell['useful_flop_ratio']:.4f}; argument bytes per device "
+            f"{cell['memory']['argument_bytes_per_device']:.4g} [the card's constants; run on "
+            f"{where}'s host]")
+    log(f"[launch] dry-run: {len(cells)} cells in {wall:.1f} s in all")
+
+
+def launch_roofline(step_ms: float, seed: int, device, where: str) -> None:
+    """``step_costs`` of qwen3-1.7b's bf16 train step (remat "none") at
+    [lm train]'s TRAIN_BATCH x TRAIN_SEQ tokens on the card: its compute
+    and memory terms beside the step time [lm train] measured."""
+    from repro_torch.config import ShapeConfig, TrainConfig, get_arch
+    from repro_torch.data import make_batch
+    from repro_torch.models import build
+    from repro_torch.optim import init_opt
+    from repro_torch.roofline import roofline_terms, step_costs
+    from repro_torch.train import make_train_step
+
+    cfg = get_arch("qwen3-1.7b")
+    model = build(cfg)
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in make_batch(cfg, shape, seed=seed, step=0).items()}
+    params = model.init(torch.Generator(device=device).manual_seed(seed), device=device)
+    tc = TrainConfig(remat="none", learning_rate=TRAIN_LR, warmup_steps=2, total_steps=100)
+    costs, coll, _ = step_costs(make_train_step(model, tc), params, init_opt(params), batch)
+    torch.cuda.synchronize()
+    terms = roofline_terms(hlo_flops=costs["flops"], hlo_bytes=costs["bytes accessed"],
+                           collective_bytes=coll.wire_bytes, chips=1, cfg=cfg, shape=shape)
+    bound_ms = max(terms.compute_s, terms.memory_s) * 1e3
+    log(f"[launch] roofline of qwen3-1.7b's bf16 train step (remat none, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens) by step_costs: {costs['flops']:.4g} FLOPs, "
+        f"{costs['bytes accessed']:.4g} bytes (every op's inputs and outputs: no fusion), "
+        f"{coll.total_count} collectives; compute term {terms.compute_s * 1e3:.2f} ms at "
+        f"{PEAK_BF16_FLOPS:.3g} FLOP/s, memory term {terms.memory_s * 1e3:.2f} ms at "
+        f"{PEAK_BYTES_PER_S:.3g} B/s, bound by {terms.dominant}; the step [lm train] measured "
+        f"{step_ms:.1f} ms (CUDA events) is {bound_ms / step_ms:.1%} of bound; model FLOPs "
+        f"{terms.model_flops:.4g} ({terms.useful_flop_ratio:.1%} of counted) [{where}]")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_launch(card: dict, seed: int, device, train_step_ms: dict) -> None:
+    from repro_torch.kernels.attn import flash_attention
+    from repro_torch.kernels.gmm import grouped_matmul
+    from repro_torch.kernels.spmv import bell_spmm
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import process_group
+
+    where = card["smi"]
+    t_phase = time.perf_counter()
+    counters = (bell_spmm, grouped_matmul, flash_attention)
+    for k in counters:
+        k.launches = 0
+    parts = {}
+    with process_group(device):  # one NCCL rank on a file store: NCCL takes a card a rank
+        mesh = make_test_mesh(1, 1, device_type="cuda")
+        for arch, opts, lr in LAUNCH_ARCHS:
+            launch_train(arch, opts, lr, mesh, seed, device, where)
+            parts[arch] = time.perf_counter() - t_phase - sum(parts.values())
+        launch_checkpoints(mesh, device, where)
+        parts["checkpoints"] = time.perf_counter() - t_phase - sum(parts.values())
+        launch_placement(mesh, seed)
+        parts["placement"] = time.perf_counter() - t_phase - sum(parts.values())
+    launch_dryrun(where)
+    parts["dry-run"] = time.perf_counter() - t_phase - sum(parts.values())
+    launch_roofline(train_step_ms["qwen3-1.7b"]["none"], seed, device, where)
+    parts["roofline"] = time.perf_counter() - t_phase - sum(parts.values())
+    launched = {k.__name__: k.launches for k in counters}
+    check(not any(launched.values()), f"[launch] a kernel of the port ran: {launched}")
+    log(f"[launch] phase {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + f"); kernel launches "
+        f"{launched}: the launch layer calls no kernel of the port, as the reference's calls no "
+        f"Pallas kernel; multi-rank meshes are verified on gloo CPU ranks only (NCCL takes one "
+        f"rank per card)")
+    torch.cuda.empty_cache()
+
+
+# -- phase 13: times ---------------------------------------------------------
 
 
 def bsr_library_ms(bt, xb, reps):
@@ -2766,7 +3122,8 @@ def main() -> int:
     moe = phase_lm_moe(device)
     attn = phase_lm_attention(device)
     phase_lm_serve(card, args.seed, device)
-    phase_lm_train(card, args.seed, device)
+    train_step_ms = phase_lm_train(card, args.seed, device)
+    phase_launch(card, args.seed, device, train_step_ms)
     rows = phase_times(main_path, card, device)
     gmm_rows = phase_times_gmm(moe, card)
     attn_rows = phase_times_attn(attn, card)

@@ -16,7 +16,10 @@ module is saved as the JAX package's tree of its weights: each list of
 blocks stacked ``[L, ...]`` under one key. Keys are the tree paths
 joined by ``/`` (``0/layers/attn/wq``, ``1/mu/embed``, ``1/step`` for
 ``(params, opt_state)``). bfloat16 arrays are stored as float32 (npz
-cannot hold them) and cast back to the template's type on restore.
+cannot hold them) and cast back to the template's type on restore. A
+DTensor is saved whole (gathered: every rank of its mesh saves) and
+restored with the template's placements, so a checkpoint restores onto
+a mesh of any size.
 
 Background-thread saves overlap training compute; ``wait()`` joins. The
 arrays are copied to the host before the thread starts, so the step may
@@ -33,6 +36,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.common import Params
 from repro_torch.models.interop import host_copy, lm_to_numpy
@@ -89,6 +93,18 @@ def _array(flat: Dict[str, np.ndarray], key: str, shape: Tuple[int, ...]) -> np.
     return arr
 
 
+def _like(arr: np.ndarray, template: torch.Tensor) -> torch.Tensor:
+    """``arr`` as a tensor of ``template``'s type and device, and of its
+    placements when it is a DTensor (each rank keeps its block of the
+    whole array it read: no data moves between ranks)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if isinstance(template, DTensor):
+        t = t.to(device=template.device_mesh.device_type, dtype=template.dtype)
+        return distribute_tensor(t, template.device_mesh, template.placements,
+                                 src_data_rank=None)
+    return t.to(device=template.device, dtype=template.dtype)
+
+
 def _module(template: nn.Module, flat: Dict[str, np.ndarray], path: List[str]) -> Params:
     """A new module like ``template`` (its types and devices) from the
     stacked arrays under ``path``."""
@@ -103,8 +119,7 @@ def _module(template: nn.Module, flat: Dict[str, np.ndarray], path: List[str]) -
                 arr = _array(flat, key, p.shape)
             else:
                 arr = _array(flat, key, (layer[1], *p.shape))[layer[0]]
-            out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(device=p.device,
-                                                                     dtype=p.dtype)
+            out[k] = _like(arr, p)
         for k, sub in mod._modules.items():
             out[k] = tree(sub, where + [k], layer)
         return out
@@ -130,8 +145,7 @@ def unflatten_tree(template: Any, flat: Dict[str, np.ndarray]) -> Any:
             return type(node)(build(v, path + [str(i)]) for i, v in enumerate(node))
         arr = _array(flat, _SEP.join(path), np.shape(node))
         if isinstance(node, torch.Tensor):
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(device=node.device,
-                                                                  dtype=node.dtype)
+            return _like(arr, node)
         if isinstance(node, np.generic):
             return node.dtype.type(arr)
         if hasattr(node, "dtype") and arr.dtype != node.dtype:

@@ -21,6 +21,9 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, 
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.mesh import token_nll, whole
 
 __all__ = [
     "Params",
@@ -114,6 +117,14 @@ def project(x: torch.Tensor, w: torch.Tensor, dims: int = 1) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    if isinstance(x, DTensor):
+        # The residual stream enters the norm whole, and its gradient
+        # leaves it whole, as Megatron's all-reduces make them: left
+        # partial (a row-parallel product's output, or the gradient of
+        # the column-parallel products after the norm), the products next
+        # to it would gather their weights and repeat the work on every
+        # rank, as DTensor's cost model weighs bytes and not operations.
+        x = whole(x)
     dtype = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
@@ -147,6 +158,10 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, x.new_zeros(()))
 
 
+def _is_meta(device) -> bool:
+    return device is not None and torch.device(device).type == "meta"
+
+
 def dense_init(
     generator: torch.Generator,
     shape: Sequence[int],
@@ -155,7 +170,11 @@ def dense_init(
     device=None,
 ) -> torch.Tensor:
     """Normal(0, 1/fan_in) drawn in float32 on the generator's device,
-    then cast to ``dtype`` and placed on ``device``."""
+    then cast to ``dtype`` and placed on ``device``. On the ``meta``
+    device nothing is drawn or allocated: the weight is a stand-in of its
+    shape and type, and the generator is left as it was."""
+    if _is_meta(device):
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = fan_in if fan_in is not None else shape[0]
     std = 1.0 / np.sqrt(fan_in)
     w = torch.randn(tuple(shape), generator=generator, device=generator.device,
@@ -165,6 +184,8 @@ def dense_init(
 
 def embed_init(generator: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    if _is_meta(device):
+        return torch.empty((vocab, d), dtype=dtype, device="meta")
     w = torch.randn((vocab, d), generator=generator, device=generator.device,
                     dtype=torch.float32) * 0.02
     return w.to(device=device or generator.device, dtype=dtype)
@@ -175,10 +196,13 @@ def cross_entropy(
     labels: torch.Tensor,  # [B, S] integer
     mask: Optional[torch.Tensor] = None,  # [B, S] float
 ) -> torch.Tensor:
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
-    nll = logz - gold
+    if isinstance(logits, DTensor):
+        nll = token_nll(logits, labels)  # on a mesh: the vocab-parallel loss
+    else:
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+        nll = logz - gold
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

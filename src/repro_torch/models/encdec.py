@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import Params, embed_init, rms_norm
-from repro_torch.models.moe import MeshCtx
+from repro_torch.models.mesh import MeshCtx, embed_lookup, mesh_scope
 from repro_torch.models.transformer import REMAT, _dtype, _logits, init_mlp, mlp, padded_vocab
 
 __all__ = [
@@ -77,22 +77,26 @@ def init_encdec(generator: torch.Generator, cfg: ArchConfig, device=None) -> Par
     })
 
 
-def encode(params: Params, frames, cfg: ArchConfig) -> torch.Tensor:
+def encode(params: Params, frames, cfg: ArchConfig, ctx: Optional[MeshCtx] = None
+           ) -> torch.Tensor:
     """frames: precomputed frontend embeddings [B, T, D] (a tensor or a
     numpy array), cast to the model's type on the weights' device."""
     x = torch.as_tensor(frames, device=params["embed"].device).to(_dtype(cfg))
     for lp in params["enc_layers"]:
         a = attn_mod.attention(lp["attn"], rms_norm(x, lp["norm1"], cfg.norm_eps), cfg,
-                               causal=False)
+                               causal=False, ctx=ctx)
         x = x + a
         x = x + mlp(lp["mlp"], rms_norm(x, lp["norm2"], cfg.norm_eps))
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _dec_block(h: torch.Tensor, lp: Params, mem: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    a = attn_mod.attention(lp["attn"], rms_norm(h, lp["norm1"], cfg.norm_eps), cfg, causal=True)
+def _dec_block(h: torch.Tensor, lp: Params, mem: torch.Tensor, cfg: ArchConfig,
+               ctx: Optional[MeshCtx] = None) -> torch.Tensor:
+    a = attn_mod.attention(lp["attn"], rms_norm(h, lp["norm1"], cfg.norm_eps), cfg, causal=True,
+                           ctx=ctx)
     h = h + a
-    c = attn_mod.cross_attention(lp["xattn"], rms_norm(h, lp["norm_x"], cfg.norm_eps), mem, cfg)
+    c = attn_mod.cross_attention(lp["xattn"], rms_norm(h, lp["norm_x"], cfg.norm_eps), mem, cfg,
+                                 ctx)
     h = h + c
     return h + mlp(lp["mlp"], rms_norm(h, lp["norm2"], cfg.norm_eps))
 
@@ -112,18 +116,19 @@ def encdec_forward(
     ``"full"`` alone."""
     if remat not in REMAT:
         raise ValueError(f"remat={remat!r}: expected one of {REMAT}")
-    mem = encode(params, batch["frontend_embeds"], cfg)
-    embed = params["embed"]
-    x = embed[torch.as_tensor(batch["tokens"], device=embed.device).long()]
     block = _dec_block
     if remat == "full" and torch.is_grad_enabled():
         # The blocks draw no random numbers: there is no RNG state to replay.
         block = functools.partial(checkpoint, _dec_block, use_reentrant=False,
                                   preserve_rng_state=False)
-    for lp in params["dec_layers"]:
-        x = block(x, lp, mem, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    with mesh_scope(ctx):
+        mem = encode(params, batch["frontend_embeds"], cfg, ctx)
+        embed = params["embed"]
+        x = embed_lookup(embed, batch["tokens"], ctx)
+        for lp in params["dec_layers"]:
+            x = block(x, lp, mem, cfg, ctx)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return _logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 class EncDecState(NamedTuple):
@@ -163,16 +168,17 @@ def encdec_decode_step(
     """One decode step: (logits [B, V], the state at ``pos + 1``). The
     cross-attention's K and V are projected from ``mem`` again at every
     step, as the reference does."""
-    embed = params["embed"]
-    x = embed[torch.as_tensor(tokens, device=embed.device).long()]
-    for i, lp in enumerate(params["dec_layers"]):
-        kvc = attn_mod.KVCache(k=state.kv_k[i], v=state.kv_v[i], length=state.pos)
-        a, _ = attn_mod.decode_attention(lp["attn"], rms_norm(x, lp["norm1"], cfg.norm_eps),
-                                         kvc, cfg)
-        x = x + a
-        c = attn_mod.cross_attention(lp["xattn"], rms_norm(x, lp["norm_x"], cfg.norm_eps),
-                                     state.mem, cfg)
-        x = x + c
-        x = x + mlp(lp["mlp"], rms_norm(x, lp["norm2"], cfg.norm_eps))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x, cfg)[:, 0], state._replace(pos=state.pos + 1)
+    with mesh_scope(ctx):
+        embed = params["embed"]
+        x = embed_lookup(embed, tokens, ctx)
+        for i, lp in enumerate(params["dec_layers"]):
+            kvc = attn_mod.KVCache(k=state.kv_k[i], v=state.kv_v[i], length=state.pos)
+            a, _ = attn_mod.decode_attention(lp["attn"], rms_norm(x, lp["norm1"], cfg.norm_eps),
+                                             kvc, cfg, ctx=ctx)
+            x = x + a
+            c = attn_mod.cross_attention(lp["xattn"], rms_norm(x, lp["norm_x"], cfg.norm_eps),
+                                         state.mem, cfg, ctx)
+            x = x + c
+            x = x + mlp(lp["mlp"], rms_norm(x, lp["norm2"], cfg.norm_eps))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return _logits(params, x, cfg)[:, 0], state._replace(pos=state.pos + 1)

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.config import ArchConfig
@@ -116,7 +117,10 @@ def opt_from_numpy(cfg: ArchConfig, state, device=None) -> "adamw.OptState":
 
 def host_copy(t: torch.Tensor) -> np.ndarray:
     """A host copy (never a view of the weight: the train step updates
-    weights in place), bfloat16 as float32."""
+    weights in place), bfloat16 as float32. A DTensor is gathered whole
+    first (a collective: every rank of its mesh calls it)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
     return t.detach().to(device="cpu", dtype=dtype, copy=True).numpy()
 

@@ -7,16 +7,27 @@ states — a ``lax.scan`` in the JAX package, a loop over the chunks here.
 The SSD arithmetic runs in float32 whatever the model's type, and ``y``
 is cast back to the input's type before the gate and the norm, as in
 the reference.
+
+On a device mesh (``ctx``) the SSD between the projections and the gate
+(:func:`_ssd`, :func:`_ssd_step`) runs per shard through ``local_map``:
+every (sequence, head) is independent given B and C, so each rank takes
+its batch shard and, where the heads divide the model axis, its heads
+with their channels, and runs the meshless code on them. Where they do
+not divide, the heads are whole on every rank of the model axis.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.config import ArchConfig
 from repro_torch.models.common import Params, dense_init, project, rms_norm, softplus
+from repro_torch.models.mesh import MeshCtx, as_dtensor
 
 __all__ = [
     "FLOAT32_PARAMS",
@@ -89,18 +100,22 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return F.silu(out + b)
 
 
-def ssm_forward(p: Params, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Chunked SSD over a full sequence. u: [B, S, D] -> [B, S, D]."""
-    bsz, s, _ = u.shape
-    h, pdim, n, cl = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
-    if s % cl:
-        raise ValueError(f"sequence length {s} is not a multiple of ssm_chunk {cl}")
-    nc = s // cl
+# The weights the SSD core reads, after the projections' outputs.
+_CORE_PARAMS = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip")
 
-    z, x, b_mat, c_mat, dt_raw = _split_proj(p, u, cfg)
-    x = _causal_conv(x, p["conv_w"], p["conv_b"])
-    dt = softplus(dt_raw.float() + p["dt_bias"])  # [B,S,H]
-    a = -torch.exp(p["a_log"])  # [H]
+
+def _ssd(x, b_mat, c_mat, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, *, chunk: int,
+         dtype: torch.dtype) -> torch.Tensor:
+    """The chunked SSD of x [B, S, Din] (H heads of Din / H channels, H =
+    ``dt_raw.shape[-1]``) with B / C [B, S, N] and the step sizes' inputs
+    dt_raw [B, S, H]: the causal conv, then y [B, S, Din] in ``dtype``."""
+    bsz, s, din = x.shape
+    h, n, cl = dt_raw.shape[-1], b_mat.shape[-1], chunk
+    pdim, nc = din // h, s // cl
+
+    x = _causal_conv(x, conv_w, conv_b)
+    dt = softplus(dt_raw.float() + dt_bias)  # [B,S,H]
+    a = -torch.exp(a_log)  # [H]
     loga = dt * a  # [B,S,H] log decay per step (<=0)
 
     xh = x.reshape(bsz, nc, cl, h, pdim).float()
@@ -116,7 +131,7 @@ def ssm_forward(p: Params, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     dec = torch.exp(
         torch.clamp(lcum[:, :, :, None, :] - lcum[:, :, None, :, :], -60.0, 0.0)
     )  # [B,nc,i,j,H]
-    causal = torch.tril(torch.ones((cl, cl), dtype=torch.float32, device=u.device))
+    causal = torch.tril(torch.ones((cl, cl), dtype=torch.float32, device=x.device))
     g = cb[..., None] * dec * causal[None, None, :, :, None]  # [B,nc,i,j,H]
     y_intra = torch.einsum("bcijh,bcjh,bcjhp->bcihp", g, dtc, xh)
 
@@ -128,7 +143,7 @@ def ssm_forward(p: Params, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     )  # [B,nc,H,P,N]
     chunk_decay = torch.exp(torch.clamp(last[:, :, 0, :], -60.0, 0.0))  # [B,nc,H]
 
-    h_prev = torch.zeros((bsz, h, pdim, n), dtype=torch.float32, device=u.device)
+    h_prev = torch.zeros((bsz, h, pdim, n), dtype=torch.float32, device=x.device)
     h_in = []  # the state *entering* each chunk
     for c in range(nc):
         h_in.append(h_prev)
@@ -138,8 +153,57 @@ def ssm_forward(p: Params, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     decay_in = torch.exp(torch.clamp(lcum, -60.0, 0.0))  # [B,nc,cl,H]
     y_inter = torch.einsum("bcln,bchpn,bclh->bclhp", cm, h_in, decay_in)
 
-    y = y_intra + y_inter + p["d_skip"][None, None, None, :, None] * xh
-    y = y.reshape(bsz, s, cfg.d_inner).to(u.dtype)
+    y = y_intra + y_inter + d_skip[None, None, None, :, None] * xh
+    return y.reshape(bsz, s, din).to(dtype)
+
+
+def _core_on_mesh(fn, args, kinds: str, out_kinds: str, cfg: ArchConfig, ctx: MeshCtx):
+    """``fn(*args)`` per shard. ``kinds`` says what each argument is:
+    ``h`` an activation [B, ..., C] whose last dim holds heads or their
+    channels, ``n`` one without heads (B and C), ``w`` a weight whose last
+    dim holds them, ``s`` a state [B, H, ...]; ``out_kinds`` the same of
+    ``fn``'s outputs. Each rank takes its batch shard and, where the heads
+    divide the model axis, its heads."""
+    m = ctx.model_axis
+    heads = cfg.ssm_heads % ctx.model_ranks == 0
+    batch = ctx.batch_shard(args[0].shape[0])
+    partial_b = Partial() if batch == Shard(0) else Replicate()
+
+    def placed(kind: str, ndim: int):
+        """(placements, gradient placements) of an argument."""
+        on_m = Replicate()
+        if heads and kind in "hw":
+            on_m = Shard(ndim - 1)
+        elif heads and kind == "s":
+            on_m = Shard(1)
+        if kind == "w":  # each batch shard's gradient of a weight is partial
+            return ctx.placements(**{m: on_m}), ctx.placements(batch=partial_b, **{m: on_m})
+        # a rank's gradient of B and C is partial, from its heads
+        grad = Partial() if heads and kind == "n" else on_m
+        return ctx.placements(batch=batch, **{m: on_m}), ctx.placements(batch=batch, **{m: grad})
+
+    pls = [placed(k, t.ndim) for k, t in zip(kinds, args)]
+    outs = [list(placed(k, 3 if k == "h" else 4)[0]) for k in out_kinds]
+    return local_map(fn, out_placements=tuple(outs) if len(outs) > 1 else outs[0],
+                     in_placements=[p for p, _ in pls], in_grad_placements=[g for _, g in pls],
+                     device_mesh=ctx.mesh, redistribute_inputs=True)(
+        *(as_dtensor(t, ctx) for t in args))
+
+
+def ssm_forward(p: Params, u: torch.Tensor, cfg: ArchConfig,
+                ctx: Optional[MeshCtx] = None) -> torch.Tensor:
+    """Chunked SSD over a full sequence. u: [B, S, D] -> [B, S, D]."""
+    s, cl = u.shape[1], cfg.ssm_chunk
+    if s % cl:
+        raise ValueError(f"sequence length {s} is not a multiple of ssm_chunk {cl}")
+    z, x, b_mat, c_mat, dt_raw = _split_proj(p, u, cfg)
+    weights = [p[k] for k in _CORE_PARAMS]
+    fn = functools.partial(_ssd, chunk=cl, dtype=u.dtype)
+    if ctx is None or ctx.mesh is None:
+        y = fn(x, b_mat, c_mat, dt_raw, *weights)
+    else:
+        y = _core_on_mesh(fn, (x, b_mat, c_mat, dt_raw, *weights), "hnnh" + "w" * 5, "h", cfg,
+                          ctx)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return project(y, p["out_proj"])
 
@@ -157,32 +221,45 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device=None) -> SsmCache:
     )
 
 
+def _ssd_step(x, conv, b_mat, c_mat, dt_raw, conv_w, conv_b, dt_bias, a_log, d_skip, state, *,
+              dtype: torch.dtype):
+    """One token's SSD: x [B, 1, Din] after the conv window ``conv`` [B,
+    cw-1, Din], B / C [B, 1, N], dt_raw [B, 1, H], the state [B, H, P, N].
+    Returns (y [B, 1, Din] in ``dtype``, the new window, the new state)."""
+    bsz, _, din = x.shape
+    h = dt_raw.shape[-1]
+    # Causal conv over (cached window + new token).
+    win = torch.cat([conv, x], dim=1)  # [B, cw, Din]
+    conv_out = torch.einsum("bwd,wd->bd", win, conv_w) + conv_b
+    xc = F.silu(conv_out)  # [B, Din]
+
+    dt = softplus(dt_raw[:, 0].float() + dt_bias)  # [B,H]
+    a = -torch.exp(a_log)
+    decay = torch.exp(dt * a)  # [B,H]
+    xh = xc.reshape(bsz, h, din // h).float()
+    bv = b_mat[:, 0].float()  # [B,N]
+    cv = c_mat[:, 0].float()
+    state = state * decay[:, :, None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dt, xh, bv
+    )
+    y = torch.einsum("bhpn,bn->bhp", state, cv) + d_skip[None, :, None] * xh
+    return y.reshape(bsz, 1, din).to(dtype), win[:, 1:], state
+
+
 def ssm_decode_step(
-    p: Params, u: torch.Tensor, cache: SsmCache, cfg: ArchConfig
+    p: Params, u: torch.Tensor, cache: SsmCache, cfg: ArchConfig,
+    ctx: Optional[MeshCtx] = None,
 ) -> Tuple[torch.Tensor, SsmCache]:
     """One-token SSD update. u: [B, 1, D]. Returns new cache tensors and
     leaves ``cache`` as it was."""
-    bsz = u.shape[0]
-    h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     z, x, b_mat, c_mat, dt_raw = _split_proj(p, u, cfg)
-
-    # Causal conv over (cached window + new token).
-    win = torch.cat([cache.conv, x], dim=1)  # [B, cw, Din]
-    conv_out = torch.einsum("bwd,wd->bd", win, p["conv_w"]) + p["conv_b"]
-    xc = F.silu(conv_out)  # [B, Din]
-    new_conv = win[:, 1:]
-
-    dt = softplus(dt_raw[:, 0].float() + p["dt_bias"])  # [B,H]
-    a = -torch.exp(p["a_log"])
-    decay = torch.exp(dt * a)  # [B,H]
-    xh = xc.reshape(bsz, h, pdim).float()
-    bv = b_mat[:, 0].float()  # [B,N]
-    cv = c_mat[:, 0].float()
-    state = cache.state * decay[:, :, None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dt, xh, bv
-    )
-    y = torch.einsum("bhpn,bn->bhp", state, cv) + p["d_skip"][None, :, None] * xh
-    y = y.reshape(bsz, 1, cfg.d_inner).to(u.dtype)
+    weights = [p[k] for k in _CORE_PARAMS]
+    fn = functools.partial(_ssd_step, dtype=u.dtype)
+    if ctx is None or ctx.mesh is None:
+        y, conv, state = fn(x, cache.conv, b_mat, c_mat, dt_raw, *weights, cache.state)
+    else:
+        y, conv, state = _core_on_mesh(fn, (x, cache.conv, b_mat, c_mat, dt_raw, *weights,
+                                            cache.state), "hhnnh" + "w" * 5 + "s", "hhs", cfg, ctx)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = project(y, p["out_proj"])
-    return out, SsmCache(conv=new_conv, state=state)
+    return out, SsmCache(conv=conv, state=state)

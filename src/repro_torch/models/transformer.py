@@ -5,9 +5,17 @@ block over them; the port keeps one :class:`Params` module per block in
 an ``nn.ModuleList`` and loops over it, with the per-layer windows as
 host integers. With host windows the reference's dynamic-window helpers
 (``_attention_dynwin``, ``_decode_attention_dynwin``) are plain
-:func:`attention` and :func:`decode_attention` calls, and its
-``act_anchor`` sharding constraint is a no-op without a mesh, the only
-case here (a mesh raises: ROADMAP.md, Queue 1, item 8e).
+:func:`attention` and :func:`decode_attention` calls.
+
+**On a mesh** (a :class:`MeshCtx` over a ``DeviceMesh``) the weights and
+the batch are DTensors placed by :mod:`repro_torch.launch.shardings`,
+and the entry points run under :func:`~repro_torch.models.moe.mesh_scope`:
+DTensor propagates the shardings through the projections and norms, as
+GSPMD does for the reference; the attention, the decode step and the SSD
+run their meshless cores per shard and the MoE layer its expert-parallel
+branches, through ``local_map``. The
+reference's ``act_anchor`` (``with_sharding_constraint``) is
+:func:`_anchor`, a redistribution of the residual stream.
 
 ``remat`` recomputes in the backward pass what the reference's
 ``jax.checkpoint`` of its scan body recomputes: ``"full"`` is
@@ -31,6 +39,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -41,8 +50,14 @@ from repro_torch.config import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import Params, dense_init, embed_init, project, rms_norm
-from repro_torch.models.moe import MeshCtx
+from repro_torch.models.common import (
+    Params,
+    dense_init,
+    embed_init,
+    project,
+    rms_norm,
+)
+from repro_torch.models.mesh import MeshCtx, as_dtensor, embed_lookup, mesh_scope
 
 __all__ = ["init_lm", "lm_forward", "lm_decode_step", "init_decode_state", "DecodeState"]
 
@@ -124,21 +139,33 @@ def _layer_windows(cfg: ArchConfig) -> List[int]:
     return [cfg.window] * cfg.num_layers
 
 
+def _anchor(x: torch.Tensor, cfg: ArchConfig, ctx: Optional[MeshCtx]) -> torch.Tensor:
+    """§Perf `act_anchor`: pin the residual stream to batch-sharded /
+    model-replicated layout, so that no op drifts into resharding [B,S,D]
+    activations between layers (the reference's
+    ``with_sharding_constraint``). Without a mesh, the identity."""
+    if not cfg.act_anchor or ctx is None or ctx.mesh is None:
+        return x
+    return as_dtensor(x, ctx).redistribute(ctx.mesh, ctx.placements(batch=Shard(0)))
+
+
 def _block(
     x: torch.Tensor,
     lp: Params,
     win: int,
     cfg: ArchConfig,
+    ctx: Optional[MeshCtx] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One residual block with the layer's window ``win``. Returns (x,
     the MoE load-balance loss, or None for the other families)."""
+    x = _anchor(x, cfg, ctx)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        return x + ssm_mod.ssm_forward(lp["ssm"], h, cfg), None
+        return x + ssm_mod.ssm_forward(lp["ssm"], h, cfg, ctx), None
 
     if cfg.family == "hybrid":
-        a_out = attn_mod.attention(lp["attn"], h, cfg, causal=True, window=win)
-        s_out = ssm_mod.ssm_forward(lp["ssm"], h, cfg)
+        a_out = attn_mod.attention(lp["attn"], h, cfg, causal=True, window=win, ctx=ctx)
+        s_out = ssm_mod.ssm_forward(lp["ssm"], h, cfg, ctx)
         mix = 0.5 * (
             rms_norm(a_out, lp["beta_attn"], cfg.norm_eps)
             + rms_norm(s_out, lp["beta_ssm"], cfg.norm_eps)
@@ -147,11 +174,12 @@ def _block(
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
         return x + mlp(lp["mlp"], h2), None
 
-    a_out = attn_mod.attention(lp["attn"], h, cfg, causal=True, window=cfg.window)
+    a_out = attn_mod.attention(lp["attn"], h, cfg, causal=True, window=cfg.window,
+                              ctx=ctx)
     x = x + a_out
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
     if cfg.is_moe:
-        y, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
+        y, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg, ctx)
         return x + y, aux
     return x + mlp(lp["mlp"], h2), None
 
@@ -179,12 +207,13 @@ def _remat_block(remat: str):
                              preserve_rng_state=False, **kw)
 
 
-def _embed_inputs(params: Params, batch: Dict[str, object], cfg: ArchConfig):
+def _embed_inputs(params: Params, batch: Dict[str, object], cfg: ArchConfig,
+                  ctx: Optional[MeshCtx] = None):
     """Token embeddings, with optional frontend-stub embeddings prepended
     (VLM patches arrive precomputed). ``batch`` holds tensors or numpy
     arrays; they are moved to the weights' device."""
     embed = params["embed"]
-    x = embed[torch.as_tensor(batch["tokens"], device=embed.device).long()]
+    x = embed_lookup(embed, batch["tokens"], ctx)
     n_front = 0
     if cfg.frontend and "frontend_embeds" in batch:
         fe = torch.as_tensor(batch["frontend_embeds"], device=embed.device).to(x.dtype)
@@ -212,20 +241,21 @@ def lm_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits [B,S,V], aux_loss); the aux
     loss is the MoE load-balance term summed over the layers, zero for
-    the other families. ``ctx`` keeps the reference's signature: without
-    a mesh it holds nothing the single-device path reads. ``remat`` is
-    one of ``REMAT`` and only matters when autograd records the call."""
+    the other families. ``ctx`` holds the mesh, if any (see the module's
+    docstring). ``remat`` is one of ``REMAT`` and only matters when
+    autograd records the call."""
     block = _remat_block(remat)
-    x, n_front = _embed_inputs(params, batch, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, win in zip(params["layers"], _layer_windows(cfg)):
-        x, a = block(x, lp, win, cfg)
-        if a is not None:
-            aux = aux + a
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if n_front:
-        x = x[:, n_front:]
-    return _logits(params, x, cfg), aux
+    with mesh_scope(ctx):
+        x, n_front = _embed_inputs(params, batch, cfg, ctx)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp, win in zip(params["layers"], _layer_windows(cfg)):
+            x, a = block(x, lp, win, cfg, ctx)
+            if a is not None:
+                aux = aux + a
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if n_front:
+            x = x[:, n_front:]
+        return _logits(params, x, cfg), aux
 
 
 # --------------------------------------------------------------------------
@@ -275,22 +305,23 @@ def _decode_block(
     win: int,
     pos: int,
     cfg: ArchConfig,
+    ctx: Optional[MeshCtx] = None,
 ) -> torch.Tensor:
     """One block of a decode step; ``cache`` holds this layer's views of
     the stacked caches, which it updates in place."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if cfg.family == "ssm":
         sc = ssm_mod.SsmCache(conv=cache["conv"], state=cache["ssm"])
-        out, sc = ssm_mod.ssm_decode_step(lp["ssm"], h, sc, cfg)
+        out, sc = ssm_mod.ssm_decode_step(lp["ssm"], h, sc, cfg, ctx)
         cache["conv"].copy_(sc.conv)
         cache["ssm"].copy_(sc.state)
         return x + out
 
     kvc = attn_mod.KVCache(k=cache["kv_k"], v=cache["kv_v"], length=pos)
     if cfg.family == "hybrid":
-        a_out, _ = attn_mod.decode_attention(lp["attn"], h, kvc, cfg, window=win)
+        a_out, _ = attn_mod.decode_attention(lp["attn"], h, kvc, cfg, window=win, ctx=ctx)
         sc = ssm_mod.SsmCache(conv=cache["conv"], state=cache["ssm"])
-        s_out, sc = ssm_mod.ssm_decode_step(lp["ssm"], h, sc, cfg)
+        s_out, sc = ssm_mod.ssm_decode_step(lp["ssm"], h, sc, cfg, ctx)
         cache["conv"].copy_(sc.conv)
         cache["ssm"].copy_(sc.state)
         mix = 0.5 * (
@@ -301,11 +332,12 @@ def _decode_block(
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
         return x + mlp(lp["mlp"], h2)
 
-    a_out, _ = attn_mod.decode_attention(lp["attn"], h, kvc, cfg, window=cfg.window)
+    a_out, _ = attn_mod.decode_attention(lp["attn"], h, kvc, cfg, window=cfg.window,
+                                          ctx=ctx)
     x = x + a_out
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
     if cfg.is_moe:
-        return x + moe_mod.moe_ffn(lp["moe"], h2, cfg)[0]
+        return x + moe_mod.moe_ffn(lp["moe"], h2, cfg, ctx)[0]
     return x + mlp(lp["mlp"], h2)
 
 
@@ -318,12 +350,13 @@ def lm_decode_step(
     ctx: Optional[MeshCtx] = None,
 ) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step: returns (logits [B, V], the state at ``pos + 1``)."""
-    embed = params["embed"]
-    x = embed[torch.as_tensor(tokens, device=embed.device).long()]
-    names = [n for n in ("kv_k", "kv_v", "conv", "ssm") if getattr(state, n) is not None]
-    for i, (lp, win) in enumerate(zip(params["layers"], _layer_windows(cfg))):
-        cache = {n: getattr(state, n)[i] for n in names}
-        x = _decode_block(x, lp, cache, win, state.pos, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, x, cfg)
-    return logits[:, 0], state._replace(pos=state.pos + 1)
+    with mesh_scope(ctx):
+        embed = params["embed"]
+        x = embed_lookup(embed, tokens, ctx)
+        names = [n for n in ("kv_k", "kv_v", "conv", "ssm") if getattr(state, n) is not None]
+        for i, (lp, win) in enumerate(zip(params["layers"], _layer_windows(cfg))):
+            cache = {n: getattr(state, n)[i] for n in names}
+            x = _decode_block(x, lp, cache, win, state.pos, cfg, ctx)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = _logits(params, x, cfg)
+        return logits[:, 0], state._replace(pos=state.pos + 1)

@@ -55,8 +55,11 @@ class OptState(NamedTuple):
 
 
 def init_opt(params: Params) -> OptState:
+    """Zero moments in float32, each placed as its weight (a DTensor
+    weight's moments are DTensors of its placements)."""
+
     def zeros(_, p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
 
     return OptState(mu=params.map(zeros), nu=params.map(zeros), step=np.int32(0))
 

@@ -4,15 +4,22 @@ The port of the JAX package's ``repro/runtime/elastic.py``. Checkpoints
 are mesh-agnostic (a logical layout), so scaling from f to f' units is:
 checkpoint → rebuild the mesh and placements → restore → continue.
 
-A mesh is a numpy array of ``torch.device`` (:func:`make_mesh_any`), and
-a placement is a :class:`PartitionSpec`, as in JAX: ``P()`` names no
-mesh axis and means *replicated*, the whole leaf on every device of the
-mesh (:class:`Replicated`). That is the one placement the sparse side
-uses — the serving engine re-places a plan's shard arrays on the
-survivors of a unit loss. A sharded placement (a spec that names an
-axis) is for the LM stack's parameters and waits for its port
-(ROADMAP.md, Queue 1, item 8e): :func:`reshard_tree` raises
-``NotImplementedError`` for one.
+A placement is a :class:`PartitionSpec`, as in JAX: one entry per
+leading dimension, a mesh axis name (or a tuple of them) or ``None``.
+A mesh is one of two things:
+
+* **A ``DeviceMesh``** over a process group, with named dimensions (the
+  LM stack's meshes, :mod:`repro_torch.launch.mesh`): a leaf becomes a
+  DTensor whose placements the spec gives (:func:`placements`), each
+  rank holding its block. ``np.asarray`` of it gathers the whole leaf
+  (:class:`ShardedLeaf`).
+* **A numpy array of ``torch.device``** in this process
+  (:func:`make_mesh_any`), what the sparse side uses: the serving engine
+  re-places a plan's shard arrays on the survivors of a unit loss.
+  ``P()`` — no entry names an axis — is *replicated*, the whole leaf on
+  every device (:class:`Replicated`); a spec whose named axes have size
+  1 places the whole leaf too, as JAX does on a one-device mesh. Blocks
+  on several devices of one process are a ``DeviceMesh``'s job.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch import resolve_device
 
@@ -31,16 +40,21 @@ __all__ = [
     "elastic_restart",
     "local_devices",
     "make_mesh_any",
+    "placements",
     "reshard_tree",
+    "ShardedLeaf",
 ]
 
 
 class PartitionSpec(tuple):
     """How a leaf lies over a mesh: one entry per leading dimension, a
-    mesh axis name or ``None``, as JAX's ``PartitionSpec``. ``P()`` — no
-    entry names an axis — is the replicated placement."""
+    mesh axis name, a tuple of them or ``None``, as JAX's
+    ``PartitionSpec`` (which also reads a tuple of one name as the name).
+    ``P()`` — no entry names an axis — is the replicated placement."""
 
     def __new__(cls, *axes):
+        axes = tuple((a[0] if len(a) == 1 else (a or None)) if isinstance(a, (tuple, list))
+                     else a for a in axes)
         return super().__new__(cls, axes)
 
     @property
@@ -66,6 +80,47 @@ class Replicated:
     def __array__(self, dtype=None, copy=None):
         host = self.shards[0].cpu().numpy()
         return host if dtype is None else host.astype(dtype, copy=False)
+
+
+class ShardedLeaf(DTensor):
+    """A DTensor placed by :func:`reshard_tree`. It is a DTensor in every
+    op (whose results are plain DTensors); ``np.asarray`` of it gathers
+    the whole leaf to the host, as ``np.asarray`` of a sharded
+    ``jax.Array`` does — a collective, so every rank of the mesh calls
+    it."""
+
+    def __array__(self, dtype=None, copy=None):
+        host = self.full_tensor().detach().cpu().numpy()
+        return host if dtype is None else host.astype(dtype, copy=False)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def placements(spec: PartitionSpec, mesh: DeviceMesh) -> tuple:
+    """DTensor placements of ``spec`` on a named ``DeviceMesh``: ``Shard(d)``
+    on each mesh dimension whose axis the spec names at tensor dimension
+    ``d``, ``Replicate()`` on the others. A tuple of axes at one dimension
+    (the batch's ``("pod", "data")``) shards it over those mesh dimensions
+    in the mesh's order, major first, as JAX reads it."""
+    names = tuple(mesh.mesh_dim_names or ())
+    out = [Replicate()] * mesh.ndim
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        idx = []
+        for axis in axes:
+            if axis not in names:
+                raise ValueError(f"{spec!r} names {axis!r}, not an axis of the mesh {names}")
+            if not isinstance(out[names.index(axis)], Replicate):
+                raise ValueError(f"{spec!r} names {axis!r} twice")
+            idx.append(names.index(axis))
+            out[names.index(axis)] = Shard(d)
+        if idx != sorted(idx):
+            raise ValueError(f"{spec!r}: the axes {axes} are not in the mesh's order {names}")
+    return tuple(out)
 
 
 def local_devices(device=None) -> List[torch.device]:
@@ -95,28 +150,39 @@ def make_mesh_any(
     return mesh.reshape(shape)
 
 
-def _place(leaf, mesh: np.ndarray, spec) -> Replicated:
+def _source(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach()
+    host = np.asarray(leaf)  # a read-only map (a lazy plan) is copied first
+    return torch.from_numpy(host if host.flags.writeable else host.copy())
+
+
+def _place(leaf, mesh, spec):
     if not isinstance(spec, PartitionSpec):
         raise TypeError(f"a placement is a PartitionSpec, got {type(spec).__name__}")
-    if not spec.replicated:
-        raise NotImplementedError(
-            f"sharded placement {spec!r}: only the replicated P() is ported; a sharded "
-            "one waits for the LM stack (ROADMAP.md, Queue 1, item 8e)"
-        )
-    if isinstance(leaf, torch.Tensor):
-        src = leaf.detach()
-    else:
-        host = np.asarray(leaf)  # a read-only map (a lazy plan) is copied first
-        src = torch.from_numpy(host if host.flags.writeable else host.copy())
+    if isinstance(mesh, DeviceMesh):
+        # Every rank holds the whole leaf: each keeps a copy of its block, and
+        # no data moves between ranks.
+        src = _source(leaf).to(mesh.device_type, copy=True)
+        placed = distribute_tensor(src, mesh, placements(spec, mesh), src_data_rank=None)
+        placed.__class__ = ShardedLeaf
+        return placed
+    if not spec.replicated and mesh.size > 1:
+        raise ValueError(
+            f"sharded placement {spec!r} over {mesh.size} devices of one process: place "
+            "it on a DeviceMesh over a process group (repro_torch.launch.mesh)")
     # Copies, so a placed leaf never aliases the array it came from.
+    src = _source(leaf)
     return Replicated(tuple(src.to(dev, copy=True) for dev in mesh.flat))
 
 
-def reshard_tree(tree: Any, mesh: np.ndarray, spec_fn: Callable[[str, Any], Any]) -> Any:
+def reshard_tree(tree: Any, mesh, spec_fn: Callable[[str, Any], Any]) -> Any:
     """Place every leaf of ``tree`` (nested dicts, lists and tuples of
-    arrays) on ``mesh`` with the placement ``spec_fn(key, leaf)``, where
-    ``key`` is the leaf's path joined by ``/`` (``"tiles"``,
-    ``"layers/0/w"``). Returns a tree of the same structure."""
+    arrays) on ``mesh`` — a ``DeviceMesh`` or a numpy array of devices —
+    with the placement ``spec_fn(key, leaf)``, where ``key`` is the
+    leaf's path joined by ``/`` (``"tiles"``, ``"layers/0/w"``). Returns
+    a tree of the same structure. On a ``DeviceMesh`` every rank calls it
+    with the same whole leaves."""
 
     def walk(node, path):
         if isinstance(node, dict):
@@ -132,12 +198,13 @@ def reshard_tree(tree: Any, mesh: np.ndarray, spec_fn: Callable[[str, Any], Any]
 def elastic_restart(
     ckpt_manager,
     template: Any,
-    new_mesh: np.ndarray,
+    new_mesh,
     spec_fn: Callable[[str, Any], Any],
     step: Optional[int] = None,
 ) -> Tuple[Any, int]:
     """Restore the latest checkpoint onto a mesh of a different size.
     ``ckpt_manager`` is any object with ``restore(template, step)``
-    returning ``(state, step)``."""
+    returning ``(state, step)``; the checkpoint holds whole leaves (a
+    logical layout), so any mesh can take it."""
     state, ck_step = ckpt_manager.restore(template, step)
     return reshard_tree(state, new_mesh, spec_fn), ck_step

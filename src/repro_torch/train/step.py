@@ -25,11 +25,12 @@ import threading
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import TrainConfig
 from repro_torch.models.api import Model
 from repro_torch.models.common import Params, cross_entropy
-from repro_torch.models.moe import MeshCtx
+from repro_torch.models.moe import MeshCtx, mesh_scope
 from repro_torch.optim.adamw import OptState, opt_update
 
 __all__ = ["loss_fn", "value_and_grad", "make_train_step", "deterministic", "TrainState"]
@@ -131,6 +132,11 @@ def make_train_step(
     ``ce`` is the mean loss and ``aux`` is 0. A batch with a leaf whose
     rows do not split evenly is refused with ``ValueError`` before any
     work (the reference's reshape raises ``TypeError`` for it).
+
+    On a mesh (``ctx`` over a ``DeviceMesh``, weights and batch DTensors
+    placed by :mod:`repro_torch.launch.shardings`) the whole step runs
+    under :func:`~repro_torch.models.moe.mesh_scope`; the metrics come
+    back whole, as plain tensors.
     """
 
     def step(params: Params, opt_state: OptState, batch, rng=None):
@@ -140,7 +146,7 @@ def make_train_step(
             if uneven:
                 raise ValueError(f"microbatches={m} does not divide the batch's rows: "
                                  + ", ".join(f"{k} has {n}" for k, n in uneven.items()))
-        with deterministic():
+        with deterministic(), mesh_scope(ctx):
             if m <= 1:
                 loss, metrics, grads = value_and_grad(model, params, batch, ctx, train_cfg)
             else:
@@ -161,8 +167,10 @@ def make_train_step(
             params, opt_state, opt_metrics = opt_update(
                 params, grads, opt_state, train_cfg, compress_rng=rng
             )
-        metrics = dict(metrics)
-        metrics.update(opt_metrics)
+            metrics = dict(metrics)
+            metrics.update(opt_metrics)
+            metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
         return params, opt_state, metrics
 
     return step

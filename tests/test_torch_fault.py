@@ -136,9 +136,14 @@ def test_elastic_restart_restores_then_places():
 
 
 def test_what_the_elastic_runtime_refuses():
+    """A sharded spec on the one-device in-process mesh places the whole
+    leaf, as JAX does on a one-device mesh; a spec that is not a
+    PartitionSpec, or a mesh the devices cannot make, is refused."""
     mesh = RT.make_mesh_any((1,), ("units",), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RT.reshard_tree({"w": np.zeros(4)}, mesh, lambda key, leaf: P("units"))
+    w = np.arange(4.0)
+    placed = RT.reshard_tree({"w": w}, mesh, lambda key, leaf: P("units"))
+    assert np.array_equal(np.asarray(placed["w"]), w)
+    assert len(placed["w"].shards) == 1 and placed["w"].shards[0].shape == (4,)
     with pytest.raises(TypeError, match="PartitionSpec"):
         RT.reshard_tree({"w": np.zeros(4)}, mesh, lambda key, leaf: None)
     with pytest.raises(ValueError, match="needs 2 devices, 1 present"):

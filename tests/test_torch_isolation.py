@@ -1,9 +1,10 @@
 """The port stands alone: ``repro_torch``, its examples, ``chip_smoke.py``
 and the card's tests load neither JAX nor any module of the JAX
-package, its entry points — the plan store's included — run on the card
-unless the caller asks for the CPU, and the parts ported last (the
-fault runtime, the ``shard_map`` executor, the schedule audit) are there
-and refuse what they cannot do."""
+package, its entry points — the plan store's and the train driver's
+included — run on the card unless the caller asks for the CPU, and the
+parts ported last (the fault runtime, the ``shard_map`` executor, the
+schedule audit, the launch layer and the roofline) are there and refuse
+what they cannot do."""
 import ast
 import os
 import subprocess
@@ -49,6 +50,10 @@ PORT_FILES = sorted(
 NAMED = ("src/repro_torch/models/encdec.py", "examples/quickstart_torch.py",
          "examples/pmvc_cluster_torch.py", "examples/serve_sparse_torch.py",
          "examples/train_lm_torch.py", "examples/serve_lm_torch.py",
+         "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/shardings.py",
+         "src/repro_torch/launch/specs.py", "src/repro_torch/launch/train.py",
+         "src/repro_torch/launch/dryrun.py", "src/repro_torch/roofline/hw.py",
+         "src/repro_torch/roofline/analysis.py",
          "tests/test_torch_gpu.py", "chip_smoke.py")
 
 
@@ -68,6 +73,9 @@ def test_import_loads_no_jax_and_no_reference_module():
         import repro_torch.models, repro_torch.serve.engine
         import repro_torch.optim, repro_torch.train, repro_torch.checkpoint
         import repro_torch.core.expert_placement, repro_torch.models.moe
+        import repro_torch.launch, repro_torch.launch.mesh, repro_torch.launch.shardings
+        import repro_torch.launch.specs, repro_torch.launch.train, repro_torch.launch.dryrun
+        import repro_torch.roofline, repro_torch.roofline.analysis, repro_torch.roofline.hw
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "jaxlib", "repro")
                      or m.startswith(("jax.", "jaxlib.", "repro.")))
@@ -204,7 +212,9 @@ def test_unported_serving_parts_say_so(tmp_path):
                                     "repro_torch.models", "repro_torch.serve.engine",
                                     "repro_torch.optim", "repro_torch.train",
                                     "repro_torch.checkpoint", "repro_torch.core.expert_placement",
-                                    "repro_torch.models.moe", "repro_torch.models.encdec"])
+                                    "repro_torch.models.moe", "repro_torch.models.encdec",
+                                    "repro_torch.launch", "repro_torch.launch.train",
+                                    "repro_torch.launch.dryrun", "repro_torch.roofline"])
 def test_last_ported_parts_import_alone_without_jax(module):
     """The fault runtime, the executor registry with ``shard_map`` and
     the schedule audit, each imported alone in a fresh interpreter, load
@@ -286,3 +296,50 @@ def test_cublas_workspace_is_set_for_deterministic_steps():
     assert run() == ":4096:8"
     env["CUBLAS_WORKSPACE_CONFIG"] = ":16:8"
     assert run() == ":16:8"
+
+
+def test_launch_train_runs_on_the_card_by_default(monkeypatch, tmp_path):
+    """``python -m repro_torch.launch.train`` without ``--device`` runs on
+    the card: with none present it raises before any process group, mesh
+    or weight is made; ``--device cpu`` is the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import main
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert not dist.is_initialized() and not os.path.exists(tmp_path / "ckpt")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, REPO))
+def test_the_mesh_layer_uses_public_dtensor_names(path):
+    """The models run under DTensor's public ``implicit_replication``
+    (``mesh_scope``), not by writing its dispatcher's private switch: a
+    private name renamed between PyTorch versions would fail only where
+    that version runs."""
+    with open(path, encoding="utf-8") as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    private = {"_op_dispatcher", "_allow_implicit_replication"}
+    used = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)} & private
+    assert not used, (path, used)
+
+
+def test_mesh_scope_nests():
+    """An inner ``mesh_scope`` leaving does not end the outer one's
+    implicit replication (the library's own context manager turns it off
+    on leaving), and the outer one leaving ends it."""
+    from torch.distributed.tensor import DTensor
+
+    from _torch_gloo import one_rank_mesh
+    from repro_torch.models.mesh import MeshCtx, as_dtensor, mesh_scope
+
+    with one_rank_mesh() as mesh:
+        ctx = MeshCtx(mesh)
+        d = as_dtensor(torch.ones(3), ctx)
+        with mesh_scope(ctx):
+            with mesh_scope(ctx):
+                pass
+            assert isinstance(d * torch.ones(3), DTensor)
+        with pytest.raises(RuntimeError, match="mixed torch.Tensor and DTensor"):
+            d * torch.ones(3)

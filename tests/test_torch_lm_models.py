@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import repro.models as ref_models
+from _torch_gloo import one_rank_mesh
 from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 from repro.config import get_arch as ref_get_arch
 from repro_torch.config import get_arch
@@ -155,9 +156,13 @@ def test_init_is_deterministic_per_seed():
 
 
 def test_options_not_ported_say_so():
-    """A mesh raises, naming its item; ``remat`` is ported (its gradients
-    are held against ``"none"`` in tests/test_torch_train_step.py) and
-    gives the same forward."""
+    """Every option is ported. ``remat`` (its gradients are held against
+    ``"none"`` in tests/test_torch_train_step.py) gives the same forward;
+    a one-rank ``(1, 1)`` mesh, weights, batch and decode state placed as
+    DTensors, gives the meshless logits bitwise, of the forward with
+    ``act_anchor`` on or off and of decode steps (the mesh paths run the
+    meshless cores per shard). The multi-rank meshes are held against the
+    JAX package and the meshless paths in tests/test_torch_launch_mesh.py."""
     cfg = get_arch("qwen3-1.7b").reduced()
     model = build(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
@@ -166,9 +171,26 @@ def test_options_not_ported_say_so():
         logits, _ = model.forward(params, batch)
         for remat in ("full", "dots"):
             assert torch.equal(model.forward(params, batch, remat=remat)[0], logits)
-    with pytest.raises(NotImplementedError, match="item 8e"):
-        MeshCtx(mesh=object())
     assert MeshCtx().mesh is None
+    from repro_torch.launch.shardings import (batch_shardings, decode_state_shardings,
+                                              param_shardings, place)
+
+    batch_t = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with torch.no_grad(), one_rank_mesh() as mesh:
+        ctx = MeshCtx(mesh, ("data",))
+        placed = place(params, param_shardings(params, cfg, mesh))
+        for anchor in (False, True):
+            acfg = dataclasses.replace(cfg, act_anchor=anchor)
+            got, _ = build(acfg).forward(placed, place(batch_t, batch_shardings(batch_t, mesh)),
+                                         ctx)
+            assert torch.equal(got.full_tensor(), logits)
+        state = model.init_state(params, batch_t, max_len=4)
+        on_mesh = place(state, decode_state_shardings(state, cfg, mesh))
+        for t in range(4):
+            tok = batch_t["tokens"][:, t:t + 1]
+            ref, state = model.decode_step(params, tok, state)
+            got, on_mesh = model.decode_step(placed, tok, on_mesh, ctx)
+            assert torch.equal(got.full_tensor(), ref)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "moonshot-v1-16b-a3b"])

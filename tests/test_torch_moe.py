@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import repro.models.moe as ref_moe
+from _torch_gloo import one_rank_mesh
 from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 from repro.config import get_arch as ref_get_arch
 from repro_torch.config import get_arch
@@ -164,10 +165,28 @@ def test_decode_is_dropless():
 
 
 def test_a_mesh_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 8e"):
-        MeshCtx(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8e"):
-        moe._dispatch_a2a()
+    """A mesh no longer raises: on a one-rank ``(1, 1)`` mesh (the model
+    axis has one rank, so the reference's one-device branch) the layer is
+    bitwise the meshless one, ``moe_a2a`` off and on, weights and input
+    as DTensors. The multi-rank branches are held against the JAX
+    package's in tests/test_torch_launch_mesh.py."""
+    from repro_torch.launch.shardings import param_shardings, place
+
+    for a2a in (False, True):
+        cfg, ref_cfg = _cfgs(moe_capacity_factor=1.0, moe_a2a=a2a)
+        p, _, x = _layer(cfg, ref_cfg)
+        with torch.no_grad():
+            y0, aux0 = moe.moe_ffn(p, torch.tensor(x), cfg)
+            with one_rank_mesh() as mesh:
+                ctx = MeshCtx(mesh, ("data",))
+                assert ctx.model_ranks == 1
+                tree = params_from_numpy({"layers": [{"moe": {
+                    k: w.numpy() for k, w in p.named_parameters()}}]}, torch.float32, "cpu")
+                placed = place(tree, param_shardings(tree, cfg, mesh))["layers"][0]["moe"]
+                with moe.mesh_scope(ctx):
+                    y, aux = moe.moe_ffn(placed, moe.as_dtensor(torch.tensor(x), ctx), cfg, ctx)
+                y, aux = y.full_tensor(), aux.full_tensor()
+        assert torch.equal(y, y0) and torch.equal(aux, aux0)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "moonshot-v1-16b-a3b"])
