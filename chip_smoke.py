@@ -9,7 +9,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    power limit;
 2. **build** — the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``bell_spmm``, ``gmm``, ``flash_attention``), all ``nvcc`` processes
-   started together, with ``-Xptxas -v``'s registers and spills;
+   started together, with ``-Xptxas -v``'s registers and spills, each
+   line after the name of its kernel;
 3. **kernel** — every kernel against its plain PyTorch version on the
    card over a sweep of shapes and types, two launches bitwise equal:
    ``bell_spmm`` over tile shapes (up to 32 × 32 on its ``stream``
@@ -22,9 +23,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``regblock`` variants × {f32, bf16} in × {f32, bf16} out,
    ``flash_attention`` over the reference tests' masks and tiles × D in
    {16, 80} × {f32, bf16}, D in {64, 128} at 128 × 128 tiles, T ≠ S
-   cases (rows that see no key, on every variant) and a shape of the
-   ``simt`` variant in each type, held against the plain version with
-   the kernel's tiles; every variant of each kernel must have run;
+   cases (rows that see no key, on every variant), a shape of the
+   ``simt`` variant in each type and shapes of the bf16 ``wgmma``
+   variant (every D from 16 to 128 by 16, bkv = 16 under its 128-key
+   chunk, bq = 256), held against the plain version with the kernel's
+   tiles; every variant of each kernel must have run;
 4. **main path** — ``distribute`` → ``spmv`` → ``solve`` at the repo's
    headline scale config (banded 60,000 × 60,000 with 1.2 M non-zeros,
    ``Topology(4, 4)``, ``NL-HC``, block 16, seed 0) for the replicated,
@@ -101,8 +104,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the attention in bf16 and f32, each held against its plain version
    (bf16 attention also to 2⁻⁶·|ref| + 2e-3 elementwise); each launch
    counter, set to 0 just before its path, must have risen on it, and
-   so must the per-variant counts of the tensor-core variants (bf16) and
-   of the register-blocked ones (f32), never those of ``simt``;
+   so must the per-variant counts of the ``wgmma`` variants (bf16) and
+   of the register-blocked ones (f32), never those of ``simt`` (nor of
+   ``mma`` for attention);
 10. **lm serve** — the language-model serving path (``repro_torch.models``,
    ``repro_torch.serve.engine``), which calls no kernel of the port (the
    three launch counters, set to 0 at its start, must stay 0): each
@@ -184,7 +188,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, the ``simt`` variant's time
    at the same shapes (the kernels of the previous slices, compared within
-   the run), the spmv wall time and peak device memory per exchange, the
+   the run; for bf16 attention the ``mma`` variant's too), the spmv wall
+   time and peak device memory per exchange, the
    shares of the replicated spmv's device time taken by the kernel and by
    the unit sum (beside the ``cumsum`` it replaced, and whether the two
    are bitwise equal), every exchange's spmv at each B inside the train
@@ -203,6 +208,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -254,11 +260,17 @@ ATTN_TILES = ((64, 16, 16), (128, 32, 16), (64, 64, 64))
 # tiles; T ≠ S; T < S with a window, so rows from T + window on see no key
 # (the plain version with the kernel's tiles is what the kernels compute
 # there); D 24, which both types run on the simt variant; T < S with rows
-# that see no key at 64 × 64 tiles, which float32 runs on regblock.
+# that see no key at 64 × 64 tiles, which float32 runs on regblock. Then
+# bf16 wgmma shapes: bkv = 16 and 32 under its 128-key chunk, bq = 256 (two
+# blocks a tile), 64-row blocks with a window, and the D it stages in two
+# 64-column boxes or in one box partly past D (16, 48, 96, 112).
 ATTN_EXTRA = ((True, 0, 256, 256, 128, 128, 64), (True, 32, 256, 256, 128, 128, 128),
               (False, 0, 256, 256, 128, 128, 128), (True, 16, 64, 192, 32, 64, 80),
               (True, 8, 128, 32, 32, 16, 80), (True, 8, 64, 64, 16, 16, 24),
-              (True, 8, 256, 64, 64, 64, 80), (True, 4, 256, 64, 128, 64, 64))
+              (True, 8, 256, 64, 64, 64, 80), (True, 4, 256, 64, 128, 64, 64),
+              (True, 0, 256, 256, 64, 16, 128), (True, 32, 512, 512, 256, 128, 64),
+              (False, 0, 128, 256, 64, 32, 48), (True, 16, 256, 256, 128, 64, 112),
+              (True, 8, 256, 64, 128, 32, 96), (True, 0, 384, 384, 128, 64, 16))
 # The [plans] phase's deltas: 1 % of the main path's non-zeros given new
 # values, and half as many inserts within the band plus as many deletes.
 PLAN_VALUE_EDITS = 12_000
@@ -437,6 +449,28 @@ def phase_card() -> dict:
 # -- phase 2: build ----------------------------------------------------------
 
 
+def ptxas_usage(nvcc_log: str) -> list:
+    """``-Xptxas -v``'s register and spill lines, each after the kernel it
+    is about: the name and integer template arguments read from the
+    mangled name (``attn_wgmma_kernel<64, 2>``)."""
+    lines, kernel = [], "?"
+    for ln in nvcc_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            name = entry.group(1)
+            pos, ident = (3 if name.startswith("_ZN") else 2), name
+            while pos < len(name) and name[pos].isdigit():  # <length><identifier> ...
+                digits = re.match(r"\d+", name[pos:]).group()
+                pos += len(digits)
+                ident, pos = name[pos:pos + int(digits)], pos + int(digits)
+            args = re.findall(r"Li(\d+)E", name)
+            kind = ", bf16" if "nv_bfloat16" in name else ""
+            kernel = ident + (f"<{', '.join(args)}{kind}>" if args or kind else "")
+        elif "registers" in ln or "spill" in ln:
+            lines.append(f"{kernel}: {ln.strip()}")
+    return lines
+
+
 def phase_build() -> None:
     from repro_torch.kernels.build import build
 
@@ -444,10 +478,8 @@ def phase_build() -> None:
     libs = build(["bell_spmm", "gmm", "flash_attention"])
     log(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
     for lib in libs.values():
-        usage = [ln.strip() for ln in lib.log.splitlines()
-                 if "registers" in ln or "spill" in ln]
         log(f"[build] {lib.name}: nvcc {lib.seconds:.2f} s -> {os.path.basename(lib.path)}")
-        for ln in usage:
+        for ln in ptxas_usage(lib.log):
             log(f"[build]   {ln}")
 
 
@@ -1687,7 +1719,7 @@ def phase_lm_attention(device) -> dict:
         launches = flash_attention.launches
         by_variant = dict(flash_attention.variant_launches)
         check(launches > 0, f"flash_attention was never launched on {name} ({dtype})")
-        new = "mma" if dtype == torch.bfloat16 else "regblock"
+        new = "wgmma" if dtype == torch.bfloat16 else "regblock"
         check(by_variant[new] == launches and by_variant["simt"] == 0,
               f"{name} ({dtype}) did not run on the {new} variant alone: {by_variant}")
         check(bool(torch.isfinite(o).all()) and o.shape == q.shape and o.dtype == dtype,
@@ -2947,10 +2979,10 @@ def grouped_mm_ms(x, w, offs, y_ref):
     return cuda_ms(lambda: fn(x, w, offs=offs), 10), f"{x.dtype} in, {x.dtype} out"
 
 
-def simt_ms(lib_name: str, fn_name: str, *args) -> float:
-    """Time of the ``simt`` variant on the same arguments, by its C entry
-    point (the wrapper would choose the new variant at these shapes):
-    the previous slice's kernel, compared within this run."""
+def variant_ms(lib_name: str, fn_name: str, *args, reps: int = 3) -> float:
+    """Time of one variant on the same arguments, by its C entry point (the
+    wrapper would choose a newer variant at these shapes): an earlier
+    slice's kernel, compared within this run."""
     if lib_name == "gmm":
         from repro_torch.kernels.gmm.ops import _library
     else:
@@ -2961,7 +2993,7 @@ def simt_ms(lib_name: str, fn_name: str, *args) -> float:
     def run():
         check(fn(*ptrs, torch.cuda.current_stream().cuda_stream) == 0, f"{fn_name} launch failed")
 
-    return cuda_ms(run, 3, warmup=1)
+    return cuda_ms(run, reps, warmup=1)
 
 
 def phase_times_gmm(moe: dict, card: dict) -> list:
@@ -2986,8 +3018,8 @@ def phase_times_gmm(moe: dict, card: dict) -> list:
         plain_ms = cuda_ms(lambda x=x, w=w: gmm_plain(x, w, gid, bm=GMM_BM), 3, warmup=1)
         variant = gmm_variant(dtype, GMM_BM, k, n)
         out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-        old_ms = simt_ms("gmm", f"gmm_simt_{'bf16' if dtype == torch.bfloat16 else 'f32'}_f32",
-                         x, w, gid, out, m, k, n, w.shape[0], GMM_BM)
+        old_ms = variant_ms("gmm", f"gmm_simt_{'bf16' if dtype == torch.bfloat16 else 'f32'}_f32",
+                            x, w, gid, out, m, k, n, w.shape[0], GMM_BM)
         del out
         w_sel = w[gid.long()]  # the gather stays outside the timed call
         x3 = x.view(-1, GMM_BM, k)
@@ -3062,21 +3094,24 @@ def phase_times_attn(attn: dict, card: dict) -> list:
         q, k, v = run["qkv"]
         kw = run["kw"]
         bh, s, d = q.shape
-        ms = cuda_ms(lambda: mha(q, k, v, **kw), 3, warmup=1)
+        variant = attention_variant(q.dtype, d, kw["bq"], kw["bkv"])
+        ms = cuda_ms(lambda: mha(q, k, v, **kw), 10, warmup=1)
 
         def plain():  # four BH rows at a time: the [4, S, S] float32 scores fit
             for i in range(0, bh, 4):
                 attention_plain(q[i:i + 4], k[i:i + 4], v[i:i + 4], **kw)
 
         plain_ms = cuda_ms(plain, 1, warmup=1)
-        variant = attention_variant(q.dtype, d, kw["bq"], kw["bkv"])
-        old_ms = ms
-        if variant != "simt":
-            o = torch.empty_like(q)
-            tname = "bf16" if q.dtype == torch.bfloat16 else "f32"
-            old_ms = simt_ms("attn", f"flash_attention_simt_{tname}", q, k, v, o, bh, s, s, d,
-                             kw["bq"], kw["bkv"], 1, kw["window"], ctypes.c_float(d**-0.5))
-            del o
+        # The earlier variants on the same arguments, then the kernel again:
+        # kernel, earlier ones, kernel, all within this run on this card.
+        tname = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        o = torch.empty_like(q)
+        others = {other: variant_ms("attn", f"flash_attention_{other}_{tname}", q, k, v, o, bh,
+                                    s, s, d, kw["bq"], kw["bkv"], 1, kw["window"],
+                                    ctypes.c_float(d**-0.5), reps=10 if other == "mma" else 3)
+                  for other in (("mma", "simt") if q.dtype == torch.bfloat16 else ("simt",))}
+        del o
+        ms_again = cuda_ms(lambda: mha(q, k, v, **kw), 10, warmup=1)
         lib_ms, backend, failed = sdpa_ms(q, k, v, s, kw["window"], run["heads"])
         pairs = visible_pairs(s, s, True, kw["window"]) * bh
         flops = 4.0 * d * pairs
@@ -3086,14 +3121,19 @@ def phase_times_attn(attn: dict, card: dict) -> list:
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": lib_ms,
                      "library_call": f"scaled_dot_product_attention ({backend}, {q.dtype})",
-                     "max_abs_err": run["err"], "simt_ms": old_ms})
+                     "max_abs_err": run["err"], "simt_ms": others["simt"],
+                     "mma_ms": others.get("mma")})
+
+        def rate(t, bound_ms=bound_ms, flops=flops) -> str:
+            return f"{t:.4f} ms ({bound_ms / t:.1%} of bound, {flops / t / 1e9:.1f} TFLOP/s)"
+
         log(f"[times] flash_attention {run['name']} {q.dtype} [BH={bh}, S={s}, D={d}]: "
-            f"kernel ({variant}) {ms:.4f} ms, simt variant {old_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}; {pairs} visible pairs, "
-            f"{flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB), {bound_ms / ms:.1%} of bound, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, "
+            f"kernel ({variant}) {rate(ms)} (again after the others: {ms_again:.4f} ms), "
+            + "".join(f"{other} variant {rate(t)}, " for other, t in others.items())
+            + f"bound {bound_ms:.4f} ms ({bound_by}; {pairs} visible pairs, "
+            f"{flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB), plain {plain_ms:.4f} ms, "
             f"scaled_dot_product_attention "
-            f"{'%.4f ms' % lib_ms if lib_ms is not None else 'not run'} "
+            f"{rate(lib_ms) if lib_ms is not None else 'not run'} "
             f"(backend {backend}; refused: {failed or 'none'}) [{card['smi']}]")
     return rows
 
@@ -3163,7 +3203,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "library_call": r["library_call"], "simt_ms": r["simt_ms"]})
+                        "library_call": r["library_call"], "simt_ms": r["simt_ms"],
+                        **({"mma_ms": r["mma_ms"]} if "mma_ms" in r else {})})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

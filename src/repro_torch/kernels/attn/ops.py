@@ -7,15 +7,20 @@ launches one of the hand-written kernels of ``csrc/flash_attention.cu``
 (built at first use), the variant that :func:`attention_variant` names
 from type and shape alone, before the launch:
 
-* ``mma`` — bf16 with D, ``bq`` and ``bkv`` multiples of 16, on the
-  tensor cores (``mma.sync.m16n8k16``);
+* ``wgmma`` — bf16 with D a multiple of 16, ``bq`` a multiple of 64 and
+  ``bkv`` of 16, Hopper's design: TMA loads from a producer warp,
+  ``wgmma`` products in consumer warpgroups;
+* ``mma`` — the other bf16 shapes with D, ``bq`` and ``bkv`` multiples of
+  16, on the tensor cores (``mma.sync.m16n8k16``);
 * ``regblock`` — float32 with D a multiple of 16 and ``bq``, ``bkv``
   multiples of 64, register-blocked on the CUDA cores;
 * ``simt`` — any other float32 or bf16 shape, on the CUDA cores.
 
 On CPU tensors it runs the plain version
 :func:`repro_torch.kernels.attn.ref.attention_plain`. There is no other
-path: a tensor elsewhere raises. :func:`mha` is the reference's
+path: a tensor elsewhere raises, and so does a CUDA tensor that is not
+contiguous or does not start on a 16-byte boundary (the kernels copy
+16-byte pieces; TMA reads only from such bases). :func:`mha` is the reference's
 ``repro/kernels/attn/ops.py::mha`` without ``interpret`` and
 ``use_kernel``: the tensors' device chooses.
 """
@@ -31,20 +36,21 @@ from repro_torch.kernels.build import load
 __all__ = ["VARIANTS", "attention_variant", "flash_attention", "mha", "visited_tiles"]
 
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-VARIANTS = ("mma", "regblock", "simt")
+VARIANTS = ("wgmma", "mma", "regblock", "simt")
 MAX_HEAD_DIM = 128  # the CUDA kernels' limit (csrc/flash_attention.cu)
 
 
 def attention_variant(dtype: torch.dtype, d: int, bq: int, bkv: int) -> str:
     """The CUDA kernel that takes inputs of ``dtype`` with head dim ``d``
-    and tiles ``bq``, ``bkv``: ``mma`` for bf16 when all three are
-    multiples of 16, ``regblock`` for float32 when ``d`` is a multiple of
-    16 and ``bq``, ``bkv`` multiples of 64 (``d`` up to 128 for both),
+    and tiles ``bq``, ``bkv``: for bf16 with ``d`` and ``bkv`` multiples
+    of 16, ``wgmma`` when ``bq`` is a multiple of 64 and ``mma`` when it
+    is one of 16; ``regblock`` for float32 when ``d`` is a multiple of 16
+    and ``bq``, ``bkv`` multiples of 64 (``d`` up to 128 for all three);
     ``simt`` otherwise. Pure: type and shape alone decide."""
     if d % 16 or d > MAX_HEAD_DIM:
         return "simt"
     if dtype == torch.bfloat16 and bq % 16 == 0 and bkv % 16 == 0:
-        return "mma"
+        return "wgmma" if bq % 64 == 0 else "mma"
     if dtype == torch.float32 and bq % 64 == 0 and bkv % 64 == 0:
         return "regblock"
     return "simt"
@@ -53,7 +59,8 @@ def attention_variant(dtype: torch.dtype, d: int, bq: int, bkv: int) -> str:
 def _library() -> ctypes.CDLL:
     lib = load("flash_attention")
     for name in ("flash_attention_simt_f32", "flash_attention_simt_bf16",
-                 "flash_attention_mma_bf16", "flash_attention_regblock_f32"):
+                 "flash_attention_mma_bf16", "flash_attention_wgmma_bf16",
+                 "flash_attention_regblock_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p,
@@ -81,7 +88,8 @@ def flash_attention(
     bkv: int = 128,
 ) -> torch.Tensor:
     """``[BH, S, D]`` in q's type. ``S % bq == 0`` and ``T % bkv == 0``,
-    as the reference asserts. CUDA tensors launch the kernel that
+    as the reference asserts. CUDA tensors, contiguous and 16-byte
+    aligned (else ``ValueError`` before any launch), launch the kernel that
     :func:`attention_variant` names on the current stream (head dims up to
     128) and add one to ``flash_attention.launches`` and to that
     variant's ``flash_attention.variant_launches``; CPU tensors run the
@@ -107,7 +115,12 @@ def flash_attention(
         raise RuntimeError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if not a.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous on the card")
+        if a.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a 16-byte boundary, "
+                             f"its data is at {a.data_ptr():#x}")
     out = torch.empty_like(q)
     variant = attention_variant(q.dtype, d, bq, bkv)
     lib = _library()

@@ -34,6 +34,31 @@
 // tensor cores. The variants, chosen by the wrapper from type and shape
 // before the launch (repro_torch/kernels/attn/ops.py::attention_variant):
 //
+//   * `wgmma` (bf16, D a multiple of 16 up to 128, bq a multiple of 64, bkv
+//     of 16), the Hopper design. A block owns 128 rows of one bq tile
+//     where 128 divides bq (else 64): one producer warpgroup and one
+//     consumer warpgroup per 64 rows, registers moved to the consumers by
+//     setmaxnreg. The producer's first thread loads the q rows once by TMA
+//     and then keeps a ring of two stages of 128-key K and V chunks in
+//     flight (3-D tensor maps over [BH, T, D], boxes of 64 columns in the
+//     128-byte swizzle, columns past D and rows past T read as zeros),
+//     each chunk staged once per block, completion on mbarriers (K and V
+//     apart, so the scores start before V lands). Each consumer warpgroup
+//     runs S = Q K^T as wgmma.mma_async m64n128k16 with both operands in
+//     shared memory (K rows are the K-major B operand), the online softmax
+//     in registers, then O += P V as wgmma m64nDk16 with P, rounded to
+//     bf16, as the register A operand (the score accumulator's layout is
+//     the A fragment's) and V read N-major through the transpose bit; it
+//     frees the stage on an mbarrier. Both warpgroups walk the bq tile's
+//     whole key range from its first key, so a 128-key chunk may start off
+//     a 128 multiple and run past the range: keys past it get p = 0
+//     exactly (-inf, not -1e30: they are not visited). The copy of chunk
+//     j + 1 overlaps the products and softmax of chunk j; the softmax of
+//     one warpgroup overlaps the other's products as the scheduler
+//     interleaves them. FlashAttention-3's overlap of chunk j's softmax
+//     with chunk j - 1's PV product inside a warpgroup, with and without
+//     the ping-pong of the two warpgroups, gave the same bits but ran
+//     slower on an H100 at the granite and h2o shapes (PERF.md §6).
 //   * `mma` (bf16, D, bq and bkv multiples of 16, D <= 128), in the manner
 //     of FlashAttention-2 on mma.sync.m16n8k16 (bf16 in, float32
 //     accumulated). A warp owns 16 q rows and a block up to 4 warps (64
@@ -74,15 +99,17 @@
 // rows start first, and write each output once. Numerics: every sum is a
 // fixed chain (fixed mma and FMA order, the row max and row sum over a
 // row's lanes by a fixed shuffle pattern), no atomics, so two launches are
-// bitwise equal. The mma and regblock variants take each exponent of the
-// exact difference s - m wherever a key may be masked (regblock
+// bitwise equal. The wgmma, mma and regblock variants take each exponent
+// of the exact difference s - m wherever a key may be masked (regblock
 // everywhere), so a row with no visible key keeps p = 1.
 //
 // Plain C interface, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and loaded with ctypes by repro_torch/kernels/attn/ops.py.
+// and loaded with ctypes by repro_torch/kernels/attn/ops.py. The wgmma
+// variant's TMA descriptors are encoded on the host by
+// cuTensorMapEncodeTiled, looked up through the runtime (hopper.cuh).
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -638,6 +665,327 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int BH, int
 }
 
 // ---------------------------------------------------------------------------
+// wgmma: bf16 on Hopper's warpgroup products, fed by TMA from a producer
+// warp. A block owns BR = 64 NWG rows of one bq tile (NWG = 2 where 128
+// rows divide bq): one producer warpgroup, whose first thread starts every
+// copy, and NWG consumer warpgroups of 64 rows each.
+
+constexpr int kWgKeys = 128;   // keys of a staged chunk: the n of the QK^T product
+constexpr int kWgStages = 2;   // K and V chunks in the TMA ring
+constexpr int kBoxBytes = 128;  // a box row: 64 bf16 columns, the 128-byte swizzle's span
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 65,536
+
+template <int D, int NWG>
+struct WgShape {
+  static constexpr int kBoxes = (D + 63) / 64;  // 64-column boxes a row
+  static constexpr int kRows = 64 * NWG;        // q rows a block
+  static constexpr int kQBytes = kBoxes * kRows * kBoxBytes;
+  static constexpr int kKeyBoxBytes = kWgKeys * kBoxBytes;  // one box of a K or V chunk
+  static constexpr int kChunkBytes = kBoxes * kKeyBoxBytes;
+  static constexpr int kBarriers = 1 + 3 * kWgStages;  // q; full K, full V, empty a stage
+  // One 1024-byte alignment slack: the swizzle repeats every 1024 bytes.
+  static constexpr int kSmem = kQBytes + 2 * kWgStages * kChunkBytes + 1024 + 8 * kBarriers;
+};
+
+// Keep the compiler from moving a register's reads or writes across the
+// asynchronous product that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+attn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,  // [BH, S, D] bf16
+                  const __grid_constant__ CUtensorMap k_map,  // [BH, T, D] bf16
+                  const __grid_constant__ CUtensorMap v_map,  // [BH, T, D] bf16
+                  bf16* __restrict__ o,                       // [BH, S, D]
+                  int BH, int S, int Tk, int bq, int bkv, int causal, int window,
+                  float scale) {
+  using Sh = WgShape<D, NWG>;
+  constexpr int NB = Sh::kBoxes;
+  constexpr int BR = Sh::kRows;
+  constexpr int KD = D / 16;          // k-steps of QK^T
+  constexpr int NT = kWgKeys / 8;     // n8 column groups of a chunk's scores
+  constexpr int PK = kWgKeys / 16;    // k-steps of PV
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* s_q = smem;                                // [NB][BR rows][128 B]
+  unsigned char* s_k = s_q + Sh::kQBytes;                   // [stages][NB][keys][128 B]
+  unsigned char* s_v = s_k + kWgStages * Sh::kChunkBytes;   // [stages][NB][keys][128 B]
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(s_v + kWgStages * Sh::kChunkBytes);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kWgStages;
+  uint64_t* empty = full_v + kWgStages;
+
+  const int nsub = bq / BR;
+  const int nqt = S / bq;
+  const int per_tile = BH * nsub;
+  const int qt = nqt - 1 - blockIdx.x / per_tile;  // last q tiles first
+  const int bh = (blockIdx.x % per_tile) / nsub;
+  const int sub = blockIdx.x % nsub;
+  const int q_start = qt * bq;
+  const int r_base = q_start + sub * BR;
+
+  // The visited kv tiles of the bq tile: one contiguous key range, which
+  // every row of the tile walks in 128-key chunks from its first key.
+  const int nkt = Tk / bkv;
+  int kt_lo = 0, kt_hi = nkt - 1;
+  if (causal) kt_hi = min(kt_hi, (q_start + bq - 1) / bkv);
+  if (window > 0 && q_start - window - bkv + 1 > 0)
+    kt_lo = (q_start - window - bkv + 1 + bkv - 1) / bkv;
+  const int key_lo = kt_lo * bkv;
+  const int key_hi = (kt_hi + 1) * bkv;
+  const int nchunks = key_hi > key_lo ? (key_hi - key_lo + kWgKeys - 1) / kWgKeys : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 128 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: q once, then K and V chunk by chunk into the ring, each
+    // chunk once for the whole block. Box c holds columns 64 c .. 64 c + 63;
+    // columns past D and rows past T arrive as zeros.
+    if constexpr (NWG > 1) regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0 && nchunks > 0) {
+      mbar_expect_tx(full_q, Sh::kQBytes);
+      for (int c = 0; c < NB; ++c)
+        tma_load_3d(s_q + c * BR * kBoxBytes, &q_map, full_q, 64 * c, r_base, bh);
+      for (int j = 0; j < nchunks; ++j) {
+        const int s = j % kWgStages;
+        if (j >= kWgStages) mbar_wait(&empty[s], ((j / kWgStages) & 1) ^ 1);
+        const int key0 = key_lo + j * kWgKeys;
+        mbar_expect_tx(&full_k[s], Sh::kChunkBytes);
+        for (int c = 0; c < NB; ++c)
+          tma_load_3d(s_k + s * Sh::kChunkBytes + c * Sh::kKeyBoxBytes, &k_map, &full_k[s],
+                      64 * c, key0, bh);
+        mbar_expect_tx(&full_v[s], Sh::kChunkBytes);
+        for (int c = 0; c < NB; ++c)
+          tma_load_3d(s_v + s * Sh::kChunkBytes + c * Sh::kKeyBoxBytes, &v_map, &full_v[s],
+                      64 * c, key0, bh);
+      }
+    }
+    return;
+  }
+  if constexpr (NWG > 1) regs_alloc<kConsumerRegs>();
+
+  // Consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of the block;
+  // warp w of it rows 16 w .. 16 w + 15, a thread rows g and g + 8 of those.
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = lane / 4;
+  const int qd = lane % 4;
+  const int w_row = r_base + 64 * cw + 16 * warp;  // the warp's first row
+
+  float acc[D / 2];  // output: acc[4 j + 2 i + c] is row g + 8 i, column 8 j + 2 qd + c
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {kMaskValue, kMaskValue};  // rows g and g + 8
+  float l[2] = {0.0f, 0.0f};              // this lane's part of the row sums
+
+  const unsigned char* qa = s_q + cw * 64 * kBoxBytes;
+  if (nchunks > 0) mbar_wait(full_q, 0);
+  for (int j = 0; j < nchunks; ++j) {
+    const int s = j % kWgStages;
+    const int phase = (j / kWgStages) & 1;
+    const int kc0 = key_lo + j * kWgKeys;
+    const unsigned char* kb = s_k + s * Sh::kChunkBytes;
+    const unsigned char* vb = s_v + s * Sh::kChunkBytes;
+
+    // Scores: sc[4 n + 2 i + c] is row g + 8 i, key kc0 + 8 n + 2 qd + c.
+    // A and B are K-major in the 128-byte swizzle: 8-row groups 1024 bytes
+    // apart, 16 d = 32 bytes on within a box, boxes apart by their size.
+    float sc[kWgKeys / 2];
+    mbar_wait(&full_k[s], phase);
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < KD; ++k16) {
+      const int c = k16 / 4;
+      const int off = 32 * (k16 % 4);
+      wgmma_m64n128k16<0>(sc, smem_desc(qa + c * BR * kBoxBytes + off, 16, 1024),
+                          smem_desc(kb + c * Sh::kKeyBoxBytes + off, 16, 1024), k16 > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // As in the mma variant: a chunk whose keys this warp's rows all see,
+    // all inside the visited range, needs no mask and its exponent is one
+    // FMA. Elsewhere scores are scaled, masked ones set to -1e30, keys past
+    // the visited range to -inf (p = 0 exactly: they are not visited), and
+    // the exponent is taken of the exact difference s - m.
+    const bool all_visible = kc0 + kWgKeys <= key_hi &&
+                             (!causal || w_row >= kc0 + kWgKeys - 1) &&
+                             (window <= 0 || w_row + 15 - kc0 <= window);
+    if (!all_visible) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = w_row + g + 8 * (e >> 1);
+          const int col = kc0 + 8 * n + 2 * qd + (e & 1);
+          const bool visible = (!causal || row >= col) && (window <= 0 || row - col <= window);
+          float& x = sc[4 * n + e];
+          x = col >= key_hi ? -INFINITY : visible ? x * scale : kMaskValue;
+        }
+      }
+    }
+    const float to_score = all_visible ? scale : 1.0f;  // sc's units to scores
+
+    // Online softmax in registers; a row's four lanes share m by shuffles.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * i], sc[4 * n + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * to_score);  // scale > 0 keeps the max
+      const float alpha = exp2f((m[i] - m_new) * kLog2e);
+      m[i] = m_new;
+      float sum = 0.0f;
+      if (all_visible) {
+        const float c = scale * kLog2e;
+        const float off = -m_new * kLog2e;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          sc[4 * n + 2 * i] = exp2f(fmaf(sc[4 * n + 2 * i], c, off));
+          sc[4 * n + 2 * i + 1] = exp2f(fmaf(sc[4 * n + 2 * i + 1], c, off));
+          sum += sc[4 * n + 2 * i] + sc[4 * n + 2 * i + 1];
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          sc[4 * n + 2 * i] = exp2f((sc[4 * n + 2 * i] - m_new) * kLog2e);
+          sc[4 * n + 2 * i + 1] = exp2f((sc[4 * n + 2 * i + 1] - m_new) * kLog2e);
+          sum += sc[4 * n + 2 * i] + sc[4 * n + 2 * i + 1];
+        }
+      }
+      l[i] = alpha * l[i] + sum;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        acc[4 * jj + 2 * i] *= alpha;
+        acc[4 * jj + 2 * i + 1] *= alpha;
+      }
+    }
+
+    // p rounded to bf16 in the A-operand layout, which is the score
+    // accumulator's: k-step kk takes score columns 16 kk .. 16 kk + 15.
+    unsigned pa[PK][4];
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+
+    // acc += p . v: V is N-major (d contiguous) in the 128-byte swizzle:
+    // 16 keys = 2048 bytes on, 8-key groups 1024 bytes apart, 64-column
+    // boxes apart by their size (the leading offset).
+    mbar_wait(&full_v[s], phase);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+      wgmma_rs_m64nNk16<D>(acc, pa[kk], smem_desc(vb + 2048 * kk, Sh::kKeyBoxBytes, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[s]);  // this warpgroup is done with the stage
+  }
+
+  bf16* o_b = o + ((long long)bh * S + w_row) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lsum = l[i];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    const float denom = fmaxf(lsum, 1e-30f);
+    bf16* orow = o_b + (long long)(g + 8 * i) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * qd) =
+          __floats2bfloat162_rn(acc[4 * jj + 2 * i] / denom, acc[4 * jj + 2 * i + 1] / denom);
+  }
+}
+
+template <int D, int NWG>
+int launch_wgmma_d(const void* q, const void* k, const void* v, void* o, int BH, int S,
+                   int Tk, int bq, int bkv, int causal, int window, float scale,
+                   void* stream) {
+  using Sh = WgShape<D, NWG>;
+  // [BH, rows, D] as TMA sees it: D innermost, boxes of 64 columns.
+  CUtensorMap q_map, k_map, v_map;
+  const cuuint64_t q_dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t q_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t q_box[3] = {64, (cuuint32_t)Sh::kRows, 1};
+  const cuuint64_t kv_dims[3] = {(cuuint64_t)D, (cuuint64_t)Tk, (cuuint64_t)BH};
+  const cuuint64_t kv_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)Tk * D * 2};
+  const cuuint32_t kv_box[3] = {64, (cuuint32_t)kWgKeys, 1};
+  if (!make_map(&q_map, q, 3, q_dims, q_strides, q_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&k_map, k, 3, kv_dims, kv_strides, kv_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&v_map, v, 3, kv_dims, kv_strides, kv_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = attn_wgmma_kernel<D, NWG>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)BH * (S / bq) * (bq / Sh::kRows);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, 128 * (NWG + 1), Sh::kSmem, (cudaStream_t)stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(o), BH, S, Tk, bq, bkv, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH, int S, int Tk,
+                 int D, int bq, int bkv, int causal, int window, float scale, void* stream) {
+  if (BH == 0 || S == 0) return (int)cudaSuccess;
+  if (D <= 0 || D > kMaxHeadDim || D % 16 || bq <= 0 || bq % 64 || bkv <= 0 || bkv % 16 ||
+      S % bq || Tk % bkv)
+    return (int)cudaErrorInvalidValue;
+  // TMA reads from 16-byte aligned bases (the wrapper refuses others first).
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (Tk == 0)  // no key, no visited tile: every row is 0
+    return (int)cudaMemsetAsync(o, 0, sizeof(bf16) * (size_t)BH * S * D, (cudaStream_t)stream);
+  // A block takes the whole bq tile where 128 rows divide it, else 64 rows.
+#define ATTN_WG_D(N)                                                                        \
+  case N:                                                                                   \
+    return bq % 128 == 0                                                                    \
+               ? launch_wgmma_d<N, 2>(q, k, v, o, BH, S, Tk, bq, bkv, causal, window,       \
+                                      scale, stream)                                        \
+               : launch_wgmma_d<N, 1>(q, k, v, o, BH, S, Tk, bq, bkv, causal, window,       \
+                                      scale, stream);
+  switch (D) {
+    ATTN_WG_D(16)
+    ATTN_WG_D(32)
+    ATTN_WG_D(48)
+    ATTN_WG_D(64)
+    ATTN_WG_D(80)
+    ATTN_WG_D(96)
+    ATTN_WG_D(112)
+    ATTN_WG_D(128)
+  }
+#undef ATTN_WG_D
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
 // regblock: float32 on the CUDA cores. A block owns BR (64 or 128) rows of
 // one bq tile; a thread owns 8 rows, 4 keys of each 32-key chunk's scores
 // and 2 columns of each 16-column strip of the output.
@@ -907,6 +1255,12 @@ int flash_attention_mma_bf16(const void* q, const void* k, const void* v, void* 
                              int BH, int S, int Tk, int D, int bq, int bkv,
                              int causal, int window, float scale, void* stream) {
   return launch_mma(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window, scale, stream);
+}
+
+int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o,
+                               int BH, int S, int Tk, int D, int bq, int bkv,
+                               int causal, int window, float scale, void* stream) {
+  return launch_wgmma(q, k, v, o, BH, S, Tk, D, bq, bkv, causal, window, scale, stream);
 }
 
 int flash_attention_regblock_f32(const void* q, const void* k, const void* v, void* o,

@@ -486,14 +486,18 @@ def test_gmm_dispatch_on_the_card(cuda):
 
 # T < S with a window leaves rows that see no key: (128, 32, 32, 16) with
 # (True, 8), (64, 32, 16, 16) with (False, 8), (128, 32, 16, 16) with
-# (True, 4), (256, 64, 64, 64) with (True, 8). D 24 runs both types on the
-# simt variant; float32 takes regblock at 64-multiple tiles.
+# (True, 4), (256, 64, 64, 64) and (256, 64, 128, 32) with (True, 8). D 24
+# runs both types on the simt variant; float32 takes regblock at 64-multiple
+# tiles; bf16 takes wgmma where bq is a multiple of 64 (bkv = 16 and 32
+# under its 128-key chunk, bq = 256 as two 128-row blocks), mma elsewhere.
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 8), (True, 32),
                                            (False, 16), (False, 8), (True, 4)])
 @pytest.mark.parametrize("s,t,bq,bkv", [(64, 64, 16, 16), (128, 128, 32, 16),
                                         (256, 256, 128, 128), (128, 256, 64, 32),
                                         (128, 32, 32, 16), (64, 32, 16, 16), (128, 32, 16, 16),
-                                        (256, 64, 64, 64), (128, 128, 64, 64)])
+                                        (256, 64, 64, 64), (128, 128, 64, 64),
+                                        (128, 128, 64, 16), (512, 512, 256, 128),
+                                        (256, 64, 128, 32)])
 @pytest.mark.parametrize("d", [16, 24, 64, 80, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain(cuda, causal, window, s, t, bq, bkv, d, dtype):
@@ -513,6 +517,68 @@ def test_attention_kernel_matches_plain(cuda, causal, window, s, t, bq, bkv, d, 
     torch.testing.assert_close(o.float(), o_plain.float(), rtol=ATTN_TOL[dtype],
                                atol=ATTN_TOL[dtype])
     assert torch.equal(o, mha(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv))
+
+
+def _attn_entry(variant, q, k, v, **kw):
+    """One bf16 variant by its C entry point, whatever the wrapper would pick."""
+    from repro_torch.kernels.attn.ops import _library
+
+    o = torch.empty_like(q)
+    bh, s, d = q.shape
+    rc = getattr(_library(), f"flash_attention_{variant}_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, k.shape[1], d, kw["bq"],
+        kw["bkv"], int(kw["causal"]), kw["window"], d**-0.5,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"{variant} launch failed: cudaError {rc}"
+    return o
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0), (False, 48)])
+@pytest.mark.parametrize("s,t,bq,bkv", [(512, 512, 128, 128), (256, 384, 64, 16),
+                                        (512, 128, 256, 64)])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+def test_attention_wgmma_agrees_with_mma(cuda, causal, window, s, t, bq, bkv, d):
+    """The Hopper variant and the mma.sync one on the same inputs, within
+    the bf16 tolerance of each other."""
+    rng = np.random.default_rng(7 * d + s + window)
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, n, d)), device=cuda).bfloat16()
+               for n in (s, t, t))
+    kw = {"causal": causal, "window": window, "bq": bq, "bkv": bkv}
+    assert attention_variant(torch.bfloat16, d, bq, bkv) == "wgmma"
+    o_wg, o_mma = _attn_entry("wgmma", q, k, v, **kw), _attn_entry("mma", q, k, v, **kw)
+    torch.testing.assert_close(o_wg.float(), o_mma.float(), rtol=ATTN_TOL[torch.bfloat16],
+                               atol=ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("d,window", [(64, 0), (80, 512), (128, 0)])
+def test_attention_wgmma_launches_are_bitwise_equal(cuda, d, window):
+    """Fixed summation order, no atomics: two launches of the wgmma variant
+    over many 128-key chunks give the same bits."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.as_tensor(rng.standard_normal((8, 2048, d)), device=cuda).bfloat16()
+               for _ in range(3))
+    kw = {"causal": True, "window": window, "bq": 128, "bkv": 128}
+    before = flash_attention.variant_launches["wgmma"]
+    o1, o2 = flash_attention(q, k, v, **kw), flash_attention(q, k, v, **kw)
+    assert flash_attention.variant_launches["wgmma"] == before + 2
+    assert torch.equal(o1, o2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fault", ["misaligned", "strided"])
+def test_attention_refuses_misaligned_or_strided_inputs(cuda, dtype, fault):
+    """TMA and cp.async copy from 16-byte aligned, contiguous rows: such an
+    input is refused before any launch, never copied or sent elsewhere."""
+    bh, s, d = 2, 128, 64
+    q, k, v = (torch.zeros((bh, s, d), dtype=dtype, device=cuda) for _ in range(3))
+    if fault == "misaligned":  # one element past a 16-byte boundary
+        q = torch.zeros(bh * s * d + 8, dtype=dtype, device=cuda)[1:1 + bh * s * d].view(bh, s, d)
+    else:  # every other column of a wider tensor
+        k = torch.zeros((bh, s, 2 * d), dtype=dtype, device=cuda)[..., ::2]
+    before = dict(flash_attention.variant_launches)
+    with pytest.raises(ValueError, match="16-byte" if fault == "misaligned" else "contiguous"):
+        flash_attention(q, k, v, causal=True, bq=128, bkv=128)
+    assert flash_attention.variant_launches == before
 
 
 # -- language models ----------------------------------------------------------

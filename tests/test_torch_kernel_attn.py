@@ -1,7 +1,8 @@
 """The flash-attention entry point on CPU tensors (the plain version)
 against the JAX package's Pallas ``flash_attention`` run in interpret
-mode — every case of ``tests/test_kernels_attn.py``, plus D = 80, T ≠ S
-and ``causal=False`` with a window — and the window-locality test, the
+mode — every case of ``tests/test_kernels_attn.py``, plus D = 80, T ≠ S,
+``causal=False`` with a window and the tiles of the card's ``wgmma``
+variant — and the window-locality test, the
 tile count, ``mha`` and the wrapper's checks.
 
 Tolerances are the reference tests': 2e-5 for float32 and 5e-2 for
@@ -94,6 +95,22 @@ def test_rows_that_see_no_key_match_pallas(dtype, s, t, bq, bkv, causal, window)
     assert blind[t + window:].all() and not blind[:t + window].any()
 
 
+# Tiles the card runs on the wgmma variant (bq a multiple of 64): bkv = 16
+# under a 128-key chunk, bq = 256, and T < S with a window, so that the
+# last rows see no key (causal, window, s, t, bq, bkv).
+WGMMA_TILE_CASES = [(True, 0, 128, 128, 64, 16), (True, 8, 256, 64, 128, 32),
+                    (False, 0, 128, 256, 128, 64), (True, 32, 256, 256, 256, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("causal,window,s,t,bq,bkv", WGMMA_TILE_CASES)
+def test_wgmma_tiles_match_pallas(dtype, d, causal, window, s, t, bq, bkv):
+    q, k, v = _qkv(2, s, t, d, seed=s + t + bkv)
+    o_jx, o_pt = _both(q, k, v, dtype, causal=causal, window=window, bq=bq, bkv=bkv)
+    np.testing.assert_allclose(o_pt, o_jx, rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_dense_plain_is_still_the_oracle():
     """Without tiles, ``attention_plain`` is the dense oracle ``attention_ref``
     on the same inputs, blind rows included."""
@@ -118,12 +135,20 @@ def test_plain_wants_both_tiles_or_neither():
 # tests/test_torch_gpu.py), with the variant it must take:
 # (dtype, D, bq, bkv, variant).
 VARIANT_CASES = [
-    *[(dt, d, bq, bkv, "mma" if dt == "bfloat16" else
+    *[(dt, d, bq, bkv, ("wgmma" if bq % 64 == 0 else "mma") if dt == "bfloat16" else
        "regblock" if bq % 64 == 0 and bkv % 64 == 0 else "simt")
       for dt in ("float32", "bfloat16") for d in (16, 64, 80, 128)
       for bq, bkv in ((16, 16), (32, 16), (64, 64), (128, 128), (32, 64), (64, 32))],
-    ("bfloat16", 64, 128, 128, "mma"),  # granite-moe-1b-a400m causal prefill
-    ("bfloat16", 80, 128, 128, "mma"),  # h2o-danube-1.8b window prefill
+    ("bfloat16", 64, 128, 128, "wgmma"),  # granite-moe-1b-a400m causal prefill
+    ("bfloat16", 80, 128, 128, "wgmma"),  # h2o-danube-1.8b window prefill
+    ("bfloat16", 64, 32, 128, "mma"),  # bq = 32: under a warpgroup's 64 rows
+    ("bfloat16", 80, 48, 16, "mma"),  # bq = 48, a multiple of 16 but not of 64
+    ("bfloat16", 64, 64, 16, "wgmma"),  # the smallest wgmma tiles
+    ("bfloat16", 128, 256, 128, "wgmma"),  # bq = 256: two 128-row blocks a tile
+    ("bfloat16", 16, 192, 48, "wgmma"),  # bq = 192: three 64-row blocks a tile
+    ("bfloat16", 64, 128, 8, "simt"),  # bkv not a multiple of 16
+    ("bfloat16", 24, 128, 128, "simt"),  # D not a multiple of 16
+    ("bfloat16", 144, 128, 128, "simt"),  # D past 128
     ("float32", 64, 128, 128, "regblock"),  # granite, float32
     ("float32", 80, 128, 128, "regblock"),  # h2o, float32
     ("float32", 80, 128, 64, "regblock"),  # 64-multiple tiles
