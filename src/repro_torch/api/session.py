@@ -20,7 +20,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.api.exchange import resolve_exchange
 from repro_torch.api.executors import EXECUTORS, SpmvFn
 from repro_torch.api.partitioners import PartitionResult, resolve_partitioner
@@ -280,7 +280,12 @@ class SparseSession:
             ncb, bn = dp.num_col_blocks, dp.bn
 
             def mv(x: torch.Tensor) -> torch.Tensor:
-                return unblock_y(run(pad_x(x, ncb, bn)), n)
+                with trace.span("spmv.call"):
+                    with trace.span("spmv.pad_x"):
+                        xb = pad_x(x, ncb, bn)
+                    yb = run(xb)
+                    with trace.span("spmv.unblock_y"):
+                        return unblock_y(yb, n)
 
             self._spmv_cache[_DEVICE_MV] = mv
         return self._spmv_cache[_DEVICE_MV]
@@ -892,9 +897,8 @@ def distribute(
         if float(lw) != 0.0:
             kw["locality_weight"] = float(lw)
             kw.setdefault("locality_bn", bn)
-        part = resolve_partitioner(combo)(a, topology, seed=seed, **kw)
-        dp = pack_units(a, part.elem_unit, topology.units, bm, bn)
-        sp = resolve_exchange(exchange)(dp)
+        part, dp, sp = _plan(a, topology, resolve_partitioner(combo), resolve_exchange(exchange),
+                             bm, bn, seed, kw)
     sess = SparseSession(
         a,
         topology,
@@ -926,6 +930,18 @@ SWEEP_FM_KW = {"fm_passes": 2, "fm_kicks": 1}
 SWEEP_TIE_REL = 0.005
 
 
+def _plan(a, topology, partition, make_exchange, bm, bn, seed, kw):
+    """The pipeline's three stages, each in its span: ``partition``,
+    then BELL packing, then ``make_exchange``'s schedule."""
+    with trace.span("plan.partition"):
+        part = partition(a, topology, seed=seed, **kw)
+    with trace.span("plan.pack"):
+        dp = pack_units(a, part.elem_unit, topology.units, bm, bn)
+    with trace.span("plan.exchange"):
+        sp = make_exchange(dp)
+    return part, dp, sp
+
+
 def _auto_locality_plan(a, topology, combo, exchange, bm, bn, seed, base_kw):
     """Plan the overlap pipeline at each ``LOCALITY_GRID`` weight and
     keep the candidate whose modeled ``t_iter_overlap`` is smallest
@@ -948,10 +964,7 @@ def _auto_locality_plan(a, topology, combo, exchange, bm, bn, seed, base_kw):
         if w != 0.0:
             kw["locality_weight"] = w
             kw.setdefault("locality_bn", bn)
-        part = run(a, topology, seed=seed, **kw)
-        dp = pack_units(a, part.elem_unit, topology.units, bm, bn)
-        sp = make_exchange(dp)
-        return part, dp, sp
+        return _plan(a, topology, run, make_exchange, bm, bn, seed, kw)
 
     screened = []
     for w in LOCALITY_GRID:

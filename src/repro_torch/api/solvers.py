@@ -30,6 +30,7 @@ from typing import TYPE_CHECKING, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.api.registry import Registry
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard
@@ -505,42 +506,45 @@ def _cg_device(session, bv, iters, tol) -> SolveResult:
     bookkeeping (``b=[N]`` logs the initial residual and stops on
     breakdown; ``b=[B, N]`` freezes a broken-down row), float32 vectors
     and float64 dot products. The breakdown test reads ``pᵀAp`` on the
-    host once per iteration."""
-    mv = session.device_spmm()
-    b = torch.as_tensor(bv, device=session.device)
-    batched = b.dim() == 2
+    host once per iteration. Traced as ``solve.cg``, each iteration as
+    ``cg.iter`` (:mod:`repro_torch.trace`)."""
+    with trace.span("solve.cg"):
+        mv = session.device_spmm()
+        b = torch.as_tensor(bv, device=session.device)
+        batched = b.dim() == 2
 
-    def dot(u, v):
-        return (u.double() * v.double()).sum(dim=-1)
+        def dot(u, v):
+            return (u.double() * v.double()).sum(dim=-1)
 
-    z = torch.zeros_like(b)
-    r = b - mv(z)
-    p = r.clone()
-    rs = dot(r, r)
-    residuals: List[torch.Tensor] = [] if batched else [rs.sqrt()]
-    k = 0
-    for k in range(1, iters + 1):  # noqa: B007 — k reported after the loop
-        ap = mv(p)
-        denom = dot(p, ap)
-        ok = denom.abs() >= 1e-30
-        if not batched and not bool(ok):
-            break
-        alpha = torch.where(ok, rs / torch.where(ok, denom, 1.0), 0.0)
-        z_new = (z + alpha[..., None] * p).float()
-        r_new = (r - alpha[..., None] * ap).float()
-        rs_new = dot(r_new, r_new)
-        p_new = (r_new + (rs_new / torch.clamp(rs, min=1e-30))[..., None] * p).float()
-        sel = ok[..., None]
-        z = torch.where(sel, z_new, z)
-        r = torch.where(sel, r_new, r)
-        p = torch.where(sel, p_new, p)
-        rs = torch.where(ok, rs_new, rs)
-        residuals.append(rs.sqrt().max())
-        if tol and float(residuals[-1]) < tol:
-            break
-    hist = torch.stack(residuals).cpu().numpy() if residuals else np.zeros(0)
-    conv = bool(tol and len(hist) and hist[-1] < tol)
-    return _result("cg", z, hist[-1] if len(hist) else 0.0, hist, k, conv)
+        z = torch.zeros_like(b)
+        r = b - mv(z)
+        p = r.clone()
+        rs = dot(r, r)
+        residuals: List[torch.Tensor] = [] if batched else [rs.sqrt()]
+        k = 0
+        for k in range(1, iters + 1):  # noqa: B007 — k reported after the loop
+            with trace.span("cg.iter"):
+                ap = mv(p)
+                denom = dot(p, ap)
+                ok = denom.abs() >= 1e-30
+                if not batched and not bool(ok):
+                    break
+                alpha = torch.where(ok, rs / torch.where(ok, denom, 1.0), 0.0)
+                z_new = (z + alpha[..., None] * p).float()
+                r_new = (r - alpha[..., None] * ap).float()
+                rs_new = dot(r_new, r_new)
+                p_new = (r_new + (rs_new / torch.clamp(rs, min=1e-30))[..., None] * p).float()
+                sel = ok[..., None]
+                z = torch.where(sel, z_new, z)
+                r = torch.where(sel, r_new, r)
+                p = torch.where(sel, p_new, p)
+                rs = torch.where(ok, rs_new, rs)
+                residuals.append(rs.sqrt().max())
+            if tol and float(residuals[-1]) < tol:
+                break
+        hist = torch.stack(residuals).cpu().numpy() if residuals else np.zeros(0)
+        conv = bool(tol and len(hist) and hist[-1] < tol)
+        return _result("cg", z, hist[-1] if len(hist) else 0.0, hist, k, conv)
 
 
 @SOLVERS.register("cg")

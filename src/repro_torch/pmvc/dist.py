@@ -53,7 +53,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.kernels.spmv import BellTiles, bell_spmm, bell_tiles, host_tensor
 from repro_torch.pmvc.plan_device import (
     DevicePlan,
@@ -212,7 +212,8 @@ class Communicator:
     def dot(self, bt: BellTiles, xsrc: torch.Tensor) -> torch.Tensor:
         """One contraction: the kernel over the rank's stacked units."""
         self._record("dot", bt.tiles.dtype, xsrc.dtype)
-        return bell_spmm(bt, xsrc)
+        with trace.span("spmv.kernel"):
+            return bell_spmm(bt, xsrc)
 
     def psum(self, y: torch.Tensor) -> torch.Tensor:
         """Sum ``y`` over the ranks, in place."""
@@ -364,7 +365,13 @@ def make_pmvc_step(
         selective = selective.selective
 
     def finish(partials: torch.Tensor) -> torch.Tensor:
-        return comm.psum(unit_sum(partials))
+        with trace.span("spmv.unit_sum"):
+            return comm.psum(unit_sum(partials))
+
+    def count_exchange(slots: int, x4: torch.Tensor) -> None:
+        # The bytes the gathers write: ``slots`` x blocks (send buffers
+        # and workspaces), each [bn, B].
+        trace.count("spmv.exchange_bytes", slots * x4[0].numel() * x4.element_size())
 
     def batched(run):
         def step(xb: torch.Tensor) -> torch.Tensor:
@@ -389,18 +396,23 @@ def make_pmvc_step(
         wave_send_idx = _index(op.wave_send_idx[lo:hi], dev)  # [Lr, K, U, L]
         wave_recv_src = _index(op.wave_recv_src[lo:hi], dev)  # [Lr, K, W']
         wave_recv_lane = _index(op.wave_recv_lane[lo:hi], dev)
+        slots = wave_send_idx.numel() + wave_recv_src.numel()
 
         def run_overlap(x4: torch.Tensor) -> torch.Tensor:
-            x_owned = _owned_blocks(owned, x4)
+            if trace.on:
+                count_exchange(slots, x4)
             # Every wave's collective issued before any contraction; wave
             # k's halo waits on wave k alone.
-            sent = [comm.all_to_all(_send_buffer(x_owned, wave_send_idx[:, k], comm.world))
-                    for k in range(op.waves)]
+            with trace.span("spmv.exchange"):
+                x_owned = _owned_blocks(owned, x4)
+                sent = [comm.all_to_all(_send_buffer(x_owned, wave_send_idx[:, k], comm.world))
+                        for k in range(op.waves)]
             partials = comm.dot(local, x_owned)
             for k, bt in enumerate(waves):
-                recv, work = sent[k]
-                work.wait()
-                ws = _workspace(recv, wave_recv_src[:, k], wave_recv_lane[:, k])
+                with trace.span("spmv.exchange"):
+                    recv, work = sent[k]
+                    work.wait()
+                    ws = _workspace(recv, wave_recv_src[:, k], wave_recv_lane[:, k])
                 partials = partials + comm.dot(bt, ws)
             return finish(partials)
 
@@ -419,11 +431,17 @@ def make_pmvc_step(
     send_idx = _index(sp.send_idx[lo:hi], dev)  # [Lr, U, L]
     recv_src = _index(sp.recv_src[lo:hi], dev)  # [Lr, W']
     recv_lane = _index(sp.recv_lane[lo:hi], dev)
+    slots = send_idx.numel() + recv_src.numel()
 
     def run_selective(x4: torch.Tensor) -> torch.Tensor:
-        recv, work = comm.all_to_all(_send_buffer(_owned_blocks(owned, x4), send_idx, comm.world))
-        work.wait()
-        return finish(comm.dot(bt, _workspace(recv, recv_src, recv_lane)))
+        if trace.on:
+            count_exchange(slots, x4)
+        with trace.span("spmv.exchange"):
+            send = _send_buffer(_owned_blocks(owned, x4), send_idx, comm.world)
+            recv, work = comm.all_to_all(send)
+            work.wait()
+            ws = _workspace(recv, recv_src, recv_lane)
+        return finish(comm.dot(bt, ws))
 
     return batched(run_selective)
 
