@@ -13,12 +13,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    line after the name of its kernel;
 3. **kernel** — every kernel against its plain PyTorch version on the
    card over a sweep of shapes and types, two launches bitwise equal:
-   ``bell_spmm`` over tile shapes (up to 32 × 32 on its ``stream``
-   variant, larger on ``simt``, and shapes off that grid — 24 × 16 on
-   ``stream``, 16 × 24 and 12 × 12 on ``simt``) and batch widths (each
-   launch on the variant ``spmm_variant`` names, column j of every B
-   bitwise the B = 1 launch on column j, and a ``stream`` result bitwise
-   the ``simt`` kernel's on the same inputs), ``gmm`` over the
+   ``bell_spmm`` over tile shapes (up to 32 × 32 on its ``ring`` and
+   ``stream`` variants, larger on ``simt``, and shapes off that grid —
+   24 × 16 on ``ring`` and ``stream``, 16 × 24 and 12 × 12 on ``simt``)
+   and batch widths (each launch on the variant ``spmm_variant`` names,
+   column j of every B bitwise the B = 1 launch on column j, a ``ring``
+   or ``stream`` result bitwise the ``simt`` kernel's and a ``ring``
+   result bitwise the ``stream`` kernel's on the same inputs), ``gmm`` over the
    reference tests' shapes and shapes that reach its ``wgmma`` and
    ``regblock`` variants × {f32, bf16} in × {f32, bf16} out,
    ``flash_attention`` over the reference tests' masks and tiles × D in
@@ -33,7 +34,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``Topology(4, 4)``, ``NL-HC``, block 16, seed 0) for the replicated,
    selective and ``overlap:2`` exchanges, held against the float64 CSR
    ``reference`` executor; each kernel's launch counter, set to 0 just
-   before a path runs, must have risen on it, on ``stream`` alone;
+   before a path runs, must have risen on it, only on variants that
+   ``spmm_variant`` names for its tiles (``ring`` at B up to 3, ``stream``
+   past it);
 5. **serve** — the serving path on the main path's sessions (nothing
    re-planned), for each exchange: one ``SparseServeEngine``
    (``batch_slots`` 8, 20 iterations, ``A`` as ``a`` and the SPD matrix
@@ -43,7 +46,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    direct batched-of-1 solve on the same session, the B = 8 spmv's
    columns bitwise the B = 1 spmv, one request per solver within 1e-4 of
    the float64 CSR oracle's direct solve, every ``bell_spmm`` launch
-   ``stream``, and the same requests through a ``ServeDriver`` thread
+   ``ring`` or ``stream``, and the same requests through a ``ServeDriver`` thread
    bitwise the same; it prints the tick wall time and its split between
    the spmv calls and the steppers' host arithmetic, one lane step's
    time by solver, the device time (CUDA events around each lane step's
@@ -69,7 +72,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    released; ``verify("strict")`` on a loaded session,
    ``verify("full")`` on a patched one and ``python -m
    repro_torch.analysis`` over the directory, each without a finding.
-   Every ``bell_spmm`` launch of the phase must be ``stream``;
+   Every ``bell_spmm`` launch of the phase must be ``ring`` or ``stream``;
 7. **faults** — the fault-tolerance runtime on the replicated and
    selective sessions (overlap:2's update replans, at every replay): per
    exchange an engine under a ``recovery_dir`` in a temporary directory
@@ -86,14 +89,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    round trip, the steppers' rebuild), a rebuilt session's first spmv,
    ``checkpoint_graph`` seconds, requests/s with and without the fault
    and the device memory allocated after recovery. Every ``bell_spmm``
-   launch must be ``stream``;
+   launch must be ``ring`` or ``stream``;
 8. **dist** — the ``shard_map`` executor on an NCCL process group of one
    rank (a file store in a temporary directory), all 16 units stacked on
    it, on the three sessions at B = 1 / 8 / 64: within 1e-5 of the
    float64 oracle, its difference from ``simulate`` and whether it is
    bitwise, whether column b is bitwise the B = 1 spmv (printed, not
    checked), the recorded schedule equal to ``golden_signature``, every
-   ``bell_spmm`` launch ``stream``, and the device time by CUDA events
+   ``bell_spmm`` launch ``ring`` or ``stream``, and the device time by CUDA events
    beside ``simulate``'s. The cross-card traffic of 4 ranks stays
    unverified on one card;
 9. **lm kernels** — the other two kernels on their own entry points at
@@ -186,9 +189,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    compute and memory terms beside the step time ``[lm train]`` measured;
 13. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
-   library call computing the same function, the ``simt`` variant's time
+   library call computing the same function, the earlier variants' times
    at the same shapes (the kernels of the previous slices, compared within
-   the run; for bf16 attention the ``mma`` variant's too), the spmv wall
+   the run: ``stream`` and ``simt`` for ``bell_spmm``, ``simt`` and for
+   bf16 attention ``mma``); ``ring`` beside ``stream`` at B = 1, 2, 3
+   (``ring``'s widths), and ``stream`` at 4, 8 and 64, on the banded plan and on HPCG's
+   27-point stencil at 64³ under NL-HC (planned here), each time with its
+   bound and share and the two bitwise equal, and on their float16 tiles
+   at B = 1 (and 8 on the banded plan); the spmv wall
    time and peak device memory per exchange, the
    shares of the replicated spmv's device time taken by the kernel and by
    the unit sum (beside the ``cumsum`` it replaced, and whether the two
@@ -225,6 +233,10 @@ SCALE_CONFIG = {"n": 60_000, "nnz": 1_200_000, "topology": (4, 4),
                 "combo": "NL-HC", "block": 16, "seed": 0}
 EXCHANGES = ("replicated", "selective", "overlap:2")
 SPMV_BATCHES = (1, 8, 64)
+# [times]'s ring-beside-stream widths, and its stencil grid: the benchmark's
+# HPCG problem (27 points, 64^3, NL-HC on Topology(4, 4), block 16).
+RING_TIME_BATCHES = (1, 2, 3, 4, 8, 64)
+STENCIL_N = 64
 # Tolerances are relative to the result's scale: max |y - y_ref| / max |y_ref|.
 TOL_F32 = 1e-5  # kernel vs plain, and spmv vs the float64 CSR oracle
 TOL_F16 = 2e-2  # float16 tiles and x, float32 accumulation
@@ -502,10 +514,11 @@ def random_tile_set(rng, u_n, nrb, bm, bn, nsrc, t_max):
     return tiles, rows, src, counts
 
 
-def spmm_simt(bt, xsrc) -> torch.Tensor:
-    """The ``simt`` kernel on the same tile set and x, by its C entry
-    point (the wrapper would choose ``stream`` at these shapes): the
-    previous slice's kernel, for the cross-variant checks and times."""
+def spmm_launcher(variant: str, bt, xsrc) -> tuple:
+    """``(launch, out)``: ``launch()`` runs one ``bell_spmm`` variant on the
+    tile set and x into ``out`` by its C entry point, whichever the wrapper
+    would choose at these shapes, its arguments built once, so that a
+    timing loop of a short kernel measures the device and not Python."""
     from repro_torch.kernels.spmv.ops import _library
 
     u_n, t_n, bm, bn = bt.tiles.shape
@@ -513,11 +526,28 @@ def spmm_simt(bt, xsrc) -> torch.Tensor:
     out = torch.empty((u_n, bt.nrb, bm, batch), dtype=torch.float32, device=bt.tiles.device)
     ustride = 0 if xsrc.shape[0] == 1 else int(xsrc.shape[1]) * bn * batch
     name = "f16" if bt.tiles.dtype == torch.float16 else "f32"
-    rc = getattr(_library(), f"bell_spmm_simt_{name}")(
-        bt.tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(), xsrc.data_ptr(),
-        out.data_ptr(), u_n, t_n, bt.nrb, bm, bn, batch, ustride,
-        torch.cuda.current_stream().cuda_stream)
-    check(rc == 0, f"bell_spmm_simt_{name} launch failed ({rc})")
+    ptrs = (bt.tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(), xsrc.data_ptr())
+    if variant == "ring":
+        args = (*ptrs, bt.pieces.data_ptr(), out.data_ptr(), int(bt.pieces.shape[0]), u_n, t_n)
+    elif variant == "stream":
+        args = (*ptrs, bt.spans.data_ptr(), out.data_ptr(), int(bt.spans.shape[0]), t_n)
+    else:
+        args = (*ptrs, out.data_ptr(), u_n, t_n)
+    fn = getattr(_library(), f"bell_spmm_{variant}_{name}")
+    args = (*args, bt.nrb, bm, bn, batch, ustride, torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        rc = fn(*args)
+        check(rc == 0, f"bell_spmm_{variant}_{name} launch failed ({rc})")
+
+    return launch, out
+
+
+def spmm_entry(variant: str, bt, xsrc) -> torch.Tensor:
+    """One ``bell_spmm`` variant's result by its C entry point: the earlier
+    variants, for the cross-variant checks and times."""
+    launch, out = spmm_launcher(variant, bt, xsrc)
+    launch()
     return out
 
 
@@ -565,9 +595,12 @@ def phase_kernel(device) -> None:
                         y1 = bell_spmm(bt, x[..., j:j + 1].contiguous())
                         check(torch.equal(y[..., j:j + 1], y1),
                               f"column {j} of B={b} is not the B=1 result ({bm},{bn}) {dtype}")
-                    if variant == "stream":
-                        check(torch.equal(y, spmm_simt(bt, x)),
-                              f"stream and simt differ ({bm},{bn}) B={b} {dtype}")
+                    if variant != "simt":
+                        check(torch.equal(y, spmm_entry("simt", bt, x)),
+                              f"{variant} and simt differ ({bm},{bn}) B={b} {dtype}")
+                    if variant == "ring":
+                        check(torch.equal(y, spmm_entry("stream", bt, x)),
+                              f"ring and stream differ ({bm},{bn}) B={b} {dtype}")
         log(f"[kernel] bell_spmm ({bm},{bn}) B in {batches}, f32 + f16, "
             f"{spmm_variant(torch.float32, bm, bn, 1)}: ok")
     ran = {v: bell_spmm.variant_launches[v] - before[v] for v in VARIANTS}
@@ -692,6 +725,19 @@ def run_solves(sess, ref, seeds):
                   f"{name}: x off the reference by {rel_err(res.x, ref[name].x):.2e}")
 
 
+def check_main_variants(by_variant: dict, launches: int, what: str) -> None:
+    """Every ``bell_spmm`` launch of a path on the main path's tiles (float32,
+    block 16) ran on a variant that ``spmm_variant`` names for them at some
+    batch width (``ring`` at narrow B, ``stream`` past it), never ``simt``."""
+    from repro_torch.kernels.spmv import spmm_variant
+
+    block = SCALE_CONFIG["block"]
+    named = {spmm_variant(torch.float32, block, block, b) for b in range(1, 65)}
+    check(launches > 0 and sum(by_variant[v] for v in named) == launches,
+          f"{what} ran a bell_spmm variant that spmm_variant does not name for its tiles "
+          f"({sorted(named)}): {by_variant}")
+
+
 def phase_main_path(device) -> dict:
     from repro_torch.api import Topology, distribute
     from repro_torch.kernels.spmv import bell_spmm
@@ -757,8 +803,7 @@ def phase_main_path(device) -> dict:
         launches = bell_spmm.launches
         by_variant = dict(bell_spmm.variant_launches)
         check(launches > 0, f"{ex}: bell_spmm was never launched on the main path")
-        check(by_variant["stream"] == launches and by_variant["simt"] == 0,
-              f"{ex}: the main path did not run on the stream variant alone: {by_variant}")
+        check_main_variants(by_variant, launches, f"{ex}: the main path")
         log(f"[main] {ex}: planning {t_plan:.1f} s (A alone {t_plan_a:.2f} s), spmv + "
             f"power_iteration + pagerank + cg (host and device loops) ok; bell_spmm launches "
             f"{launches} {by_variant}")
@@ -907,14 +952,14 @@ def phase_serve(main: dict, card: dict, seed: int) -> dict:
 
         def counted(what: str, run):
             """Run ``run`` with the launch counters set to 0 just before and
-            read just after; every launch must be stream."""
+            read just after; every launch must be on a variant that
+            ``spmm_variant`` names for the main path's tiles."""
             bell_spmm.launches = 0
             bell_spmm.variant_launches = dict.fromkeys(bell_spmm.variant_launches, 0)
             got = run()
             torch.cuda.synchronize()
             by_variant = dict(bell_spmm.variant_launches)
-            check(bell_spmm.launches > 0 and by_variant["stream"] == bell_spmm.launches,
-                  f"{ex}: {what} did not run on stream alone: {by_variant}")
+            check_main_variants(by_variant, bell_spmm.launches, f"{ex}: {what}")
             return got, by_variant
 
         # The engine, ticked here: wall time per tick, device time per lane step.
@@ -1280,8 +1325,7 @@ def phase_plans(main: dict, card: dict, seed: int, device) -> dict:
     torch.cuda.synchronize()
     launches = bell_spmm.launches
     by_variant = dict(bell_spmm.variant_launches)
-    check(launches > 0 and by_variant["stream"] == launches,
-          f"[plans] did not run on stream alone: {by_variant}")
+    check_main_variants(by_variant, launches, "[plans]")
     log(f"[plans] phase {time.perf_counter() - t_phase:.1f} s; bell_spmm launches {launches} "
         f"{by_variant}")
     return {"launches": launches, "variant_launches": by_variant, "value_delta": value_delta}
@@ -1458,8 +1502,7 @@ def phase_faults(main: dict, plans: dict, card: dict, seed: int) -> dict:
     torch.cuda.synchronize()
     launches = bell_spmm.launches
     by_variant = dict(bell_spmm.variant_launches)
-    check(launches > 0 and by_variant["stream"] == launches,
-          f"[faults] did not run on stream alone: {by_variant}")
+    check_main_variants(by_variant, launches, "[faults]")
     log(f"[faults] phase {time.perf_counter() - t_phase:.1f} s; bell_spmm launches {launches} "
         f"{by_variant}")
     return {"launches": launches, "variant_launches": by_variant}
@@ -1547,8 +1590,7 @@ def phase_dist(main: dict, card: dict, device) -> dict:
             by_variant = dict(bell_spmm.variant_launches)
         finally:
             dist.destroy_process_group()
-    check(launches > 0 and by_variant["stream"] == launches,
-          f"[dist] did not run on stream alone: {by_variant}")
+    check_main_variants(by_variant, launches, "[dist]")
     log("[dist] NCCL takes one rank per card: this run's group has one rank, all 16 units "
         "stacked on it; the cross-card traffic of 4 ranks is unverified until a machine has 4 "
         "cards")
@@ -2826,7 +2868,56 @@ def bsr_library_ms(bt, xb, reps):
         return ms, "torch.sparse.mm(CSR float32)"
 
 
+def stencil27_coo(n: int):
+    """HPCG's 27-point stencil on an n^3 grid (``GenerateProblem_ref.cpp``:
+    26 on the diagonal, -1 for every neighbour, row ix + n (iy + n iz))."""
+    from repro_torch.sparse.formats import COO
+
+    iz, iy, ix = (a.ravel() for a in np.meshgrid(*(np.arange(n),) * 3, indexing="ij"))
+    rows, cols, vals = [], [], []
+    for dz, dy, dx in np.ndindex(3, 3, 3):
+        jx, jy, jz = ix + dx - 1, iy + dy - 1, iz + dz - 1
+        ok = (jx >= 0) & (jx < n) & (jy >= 0) & (jy < n) & (jz >= 0) & (jz < n)
+        rows.append(np.nonzero(ok)[0])
+        cols.append(jx[ok] + n * (jy[ok] + n * jz[ok]))
+        vals.append(np.full(int(ok.sum()), 26.0 if (dx, dy, dz) == (1, 1, 1) else -1.0))
+    row, col = np.concatenate(rows), np.concatenate(cols)
+    order = np.lexsort((col, row))
+    return COO((n**3, n**3), row[order].astype(np.int32), col[order].astype(np.int32),
+               np.concatenate(vals)[order].astype(np.float32))
+
+
+def ring_stream_times(label: str, bt, ncb: int, batches, where: str) -> None:
+    """``ring`` beside ``stream`` on one plan's tiles, each by its C entry
+    point with its arguments built once (``ring`` at the B it is built
+    for), with the variant the wrapper chooses, each time's share of the
+    bound, and the two bitwise equal."""
+    from repro_torch.kernels.spmv import spmm_variant
+    from repro_torch.kernels.spmv.ops import RING_MAX_BATCH
+
+    u_n, _, bm, bn = bt.tiles.shape
+    dtype, esize, real = bt.tiles.dtype, bt.tiles.element_size(), bt.real_tiles
+    rng = np.random.default_rng(2)
+    for b in batches:
+        xsrc = torch.as_tensor(rng.standard_normal((1, ncb, bn, b)).astype(np.float32),
+                               device=bt.tiles.device).to(dtype)
+        ran = ("ring", "stream") if b <= RING_MAX_BATCH else ("stream",)
+        ms = {v: cuda_ms(spmm_launcher(v, bt, xsrc)[0], 20) for v in ran}
+        if "ring" in ms:
+            check(torch.equal(spmm_entry("ring", bt, xsrc), spmm_entry("stream", bt, xsrc)),
+                  f"[times] ring and stream differ on {label} {dtype} B={b}")
+        bytes_moved = (real * bm * bn * esize + real * 4 + u_n * (bt.nrb + 1) * 4
+                       + xsrc.numel() * esize + u_n * bt.nrb * bm * b * 4)
+        bound_ms, bound_by = bound(bytes_moved, 2.0 * real * bm * bn * b, torch.float32)
+        log(f"[times] bell_spmm {label} ({bm}x{bn} {dtype}, real {real}) B={b}: "
+            + ", ".join(f"{v} {t:.4f} ms ({bound_ms / t:.1%} of bound)" for v, t in ms.items())
+            + (f", ring / stream {ms['ring'] / ms['stream']:.3f}" if "ring" in ms else "")
+            + f"; chosen {spmm_variant(dtype, bm, bn, b)}; bound {bound_ms:.4f} ms "
+            f"({bound_by}, {bytes_moved / 1e6:.1f} MB) [{where}]")
+
+
 def phase_times(main: dict, card: dict, device) -> list:
+    from repro_torch.api import Topology, distribute
     from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles, spmm_variant
     import repro_torch.pmvc.dist as dist_mod
     from repro_torch.pmvc.dist import hoist_tiles, pad_x, unit_sum
@@ -2849,7 +2940,8 @@ def phase_times(main: dict, card: dict, device) -> list:
         xsrc = xb[None]
         reps = 20
         ms = cuda_ms(lambda: bell_spmm(bt, xsrc), reps)
-        old_ms = cuda_ms(lambda: spmm_simt(bt, xsrc), reps)
+        old_ms = cuda_ms(spmm_launcher("simt", bt, xsrc)[0], reps)
+        stream_ms = cuda_ms(spmm_launcher("stream", bt, xsrc)[0], reps)
         partials = bell_spmm(bt, xsrc)
         sum_ms = cuda_ms(lambda: unit_sum(partials), reps)  # the executor's unit sum
         # The unit sum it replaced, a cumsum over the units (refused under
@@ -2879,10 +2971,12 @@ def phase_times(main: dict, card: dict, device) -> list:
                      "bound_by": "bytes" if t_bytes >= t_flops else "operations",
                      "library_ms": lib_ms, "library_call": lib_name,
                      "max_abs_err": err, "bytes": bytes_moved, "flops": flops,
-                     "simt_ms": old_ms, "sum_ms": sum_ms, "cumsum_ms": cumsum_ms,
+                     "simt_ms": old_ms, "stream_ms": stream_ms, "sum_ms": sum_ms,
+                     "cumsum_ms": cumsum_ms,
                      "sum_same": sum_same})
         log(f"[times] bell_spmm U={u_n} T={bt.tiles.shape[1]} real={real} ({bm}x{bn}) "
-            f"B={b}: kernel ({variant}) {ms:.4f} ms, simt variant {old_ms:.4f} ms, "
+            f"B={b}: kernel ({variant}) {ms:.4f} ms, stream variant {stream_ms:.4f} ms, "
+            f"simt variant {old_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms "
             f"({rows[-1]['bound_by']}; {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
             f"{bound_ms / ms:.1%} of bound, plain {plain_ms:.4f} ms, "
@@ -2943,6 +3037,33 @@ def phase_times(main: dict, card: dict, device) -> list:
             peak = torch.cuda.max_memory_allocated() / 2**20
             log(f"[times] spmv {ex} B={b}: device {dev_ms:.4f} ms, wall {wall_ms:.3f} ms "
                 f"(numpy in and out), peak device memory {peak:.0f} MiB [{where}]")
+    # ring beside stream: the banded plan (float32 above, float16 here), then
+    # HPCG's 64^3 stencil under NL-HC, the benchmark's plan, whose block-rows
+    # hold about 10 tiles.
+    ring_stream_times("banded", bt, dp.num_col_blocks, RING_TIME_BATCHES, where)
+    bt16 = bell_tiles(hoist_tiles(dp.tiles, device=device).to(torch.float16), dp.tile_row,
+                      dp.tile_col, dp.real_tiles, nrb)
+    ring_stream_times("banded", bt16, dp.num_col_blocks, (1, 8), where)
+    del bt16
+    t0 = time.perf_counter()
+    stencil = distribute(stencil27_coo(STENCIL_N), topology=Topology(4, 4), combo="NL-HC",
+                         block=16, seed=0, exchange="selective")
+    sdp = stencil.device_plan
+    sbt = bell_tiles(hoist_tiles(sdp.tiles, device=device), sdp.tile_row, sdp.tile_col,
+                     sdp.real_tiles, sdp.num_row_blocks)
+    runs = np.diff(sbt.row_ptr.cpu().numpy(), axis=1)
+    log(f"[times] stencil {STENCIL_N}^3 NL-HC: planned in {time.perf_counter() - t0:.1f} s; "
+        f"{sbt.real_tiles} real tiles, {runs.size} (unit, block-row) runs of {runs.mean():.2f} "
+        f"tiles (max {runs.max()}), {sbt.spans.shape[0]} stream spans, {sbt.pieces.shape[0]} "
+        f"ring pieces")
+    ring_stream_times(f"stencil {STENCIL_N}^3", sbt, sdp.num_col_blocks, RING_TIME_BATCHES,
+                      where)
+    del sbt
+    sbt16 = bell_tiles(hoist_tiles(sdp.tiles, device=device).to(torch.float16), sdp.tile_row,
+                       sdp.tile_col, sdp.real_tiles, sdp.num_row_blocks)
+    ring_stream_times(f"stencil {STENCIL_N}^3", sbt16, sdp.num_col_blocks, (1,), where)
+    del sbt16, stencil, sdp
+    torch.cuda.empty_cache()
     # A measurement for the serving path, not a check: is the whole spmv,
     # unit sum included, column-stable in B on CUDA?
     mv = main["sessions"]["replicated"].device_spmm()

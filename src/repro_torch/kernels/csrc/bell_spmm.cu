@@ -16,11 +16,36 @@
 // byte read (16x16 float32 tiles: 2*256*8 flops against 1 KiB of tile), far
 // below the ~20 flop/byte ridge of the float32 CUDA cores; at B = 64 the
 // bytes still bound it in principle, but a kernel that reads both operands
-// of every FMA from shared memory is held by the load issue rate first. Two
-// variants, chosen by the wrapper from type and shape before the launch
-// (repro_torch/kernels/spmv/ops.py::spmm_variant):
+// of every FMA from shared memory is held by the load issue rate first.
+// Three variants, chosen by the wrapper from type and shape before the
+// launch (repro_torch/kernels/spmv/ops.py::spmm_variant):
 //
-//   * `stream` (bm = 8, 16, 24 or 32, bn = 8, 16 or 32, any B). A block
+//   * `ring` (the stream shapes at B = 1 .. 3). At narrow B the bytes are
+//     the whole bound: a tile is read for bm x B FMAs and nothing else, so
+//     the kernel is as fast as it keeps the card's memory busy. The card
+//     needs some 25 KB in flight per SM for that; a plan of short block-rows
+//     (HPCG's stencil: about 10 tiles a row) gives `stream` spans of one
+//     row, one 1 KiB tile in flight a block and a barrier a tile. Here a
+//     persistent grid (two blocks an SM) walks pieces of whole block-rows,
+//     about 32 KiB of tiles each, built once on the host
+//     (ops.py::ring_pieces). Producer warps copy each piece's tiles, a
+//     contiguous run, into an 8-stage ring of 8 KiB stages in shared
+//     memory, one TMA load a tile (lane i the stage's i-th), and the x
+//     blocks that tile_src names for them in 16-byte cp.async pieces, all
+//     completing on the stage's mbarrier: up to 128 KiB in flight per SM,
+//     no __syncthreads in the loop. A warp issues its lanes' TMA loads one
+//     after another, and one producer warp held a block to about 11 KB/us
+//     however many stages or blocks an SM it had (with a bulk copy for
+//     each x block besides), so two warps take the stages in turn.
+//     Consumers are groups of bm x B threads, one output (m, b) each; the
+//     block's rows go to the groups in turn, so a warp holds two 16-row
+//     block-rows at B = 1, and a thread keeps its chain in a register over
+//     its row's whole run, whatever stages it spans. TMA writes each tile
+//     in the swizzle of its row bytes, so the eight rows a quarter-warp
+//     reads at once fall on distinct banks.
+//
+//   * `stream` (bm = 8, 16, 24 or 32, bn = 8, 16 or 32; the wrapper sends
+//     it B > 3, and it takes any B). A block
 //     owns one unit and a span of consecutive block-rows [r0, r1), computed
 //     once on the host (ops.py::row_spans) so that spans hold about the
 //     same number of tiles and up to 64 output rows; a row is never split
@@ -43,7 +68,7 @@
 //     per (unit, block-row, column chunk), each tile and its x block staged
 //     synchronously, then read scalar by scalar from shared memory.
 //
-// In both, each tile is read from device memory once per column chunk, each
+// In all three, each tile is read from device memory once per column chunk, each
 // output element is written exactly once (a row with no tiles as 0), no
 // atomics, and loops are bounded by the real tile counts (the per-unit row
 // pointer), so padding tiles are never read.
@@ -61,7 +86,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded with ctypes by repro_torch/kernels/spmv/ops.py.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -443,6 +468,385 @@ int launch_stream(const void* tiles, const void* row_ptr, const void* tile_src,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// ring: the stream shapes at narrow batch widths (B = 1 .. kRingMaxBatch); a
+// persistent block walks a list of pieces, each a unit's run of whole
+// block-rows holding about the same number of tiles (ops.py::ring_pieces).
+
+// The sizes below won a sweep on an H100 (PERF.md, Findings): 8 stages of 8
+// KiB, two producer warps and two blocks an SM beat 4 to 16 stages of 4 to
+// 16 KiB, one or four producers and one or three blocks, on the banded and
+// the 64^3 stencil plans at B = 1 to 4.
+constexpr int kRingStages = 8;             // stages in the ring
+constexpr int kRingStageBytes = 8 * 1024;  // tile bytes a stage holds, about
+constexpr int kRingChunkMax = 32;          // tiles a stage holds at most: one a producer lane
+constexpr int kRingConsumers = 256;        // consumer threads a block at most
+constexpr int kRingProducers = 2;          // producer warps
+constexpr int kRingThreads = kRingConsumers + 32 * kRingProducers;
+constexpr int kRingBlocksPerSM = 2;
+constexpr int kRingMaxBatch = 3;           // batch widths instantiated (ops.py::RING_MAX_BATCH)
+
+// The 16 bytes at p (16-byte aligned) as float32: 4 floats or 8 halves.
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load16(const __half* p, float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// Row m of one staged tile into output (m, b)'s chain: n = 0 .. BN-1 in
+// order. The tile arrived by TMA in the swizzle that matches its row bytes
+// (ring_swizzle), so 16-byte chunk c of the row lies at chunk c ^ swz: the
+// eight rows a quarter-warp reads at once fall on distinct banks.
+template <typename T, int BN, int NB>
+__device__ __forceinline__ float ring_row(const T* trow, int swz, const T* xs, int b, float a) {
+  constexpr int E = 16 / sizeof(T);  // values in 16 bytes
+  constexpr int NC = BN / E;         // 16-byte chunks of a tile row
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    float v[E], xv[E];
+    load16(trow + (c ^ swz) * E, v);
+    if constexpr (NB == 1) {
+      load16(xs + c * E, xv);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) xv[e] = to_f32(xs[(c * E + e) * NB + b]);
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) a = fmaf(v[e], xv[e], a);
+  }
+  return a;
+}
+
+// The piece record: unit, rows [r0, r1), tiles [t0, t1).
+struct RingPiece {
+  int u, r0, r1, t0, t1;
+};
+__device__ __forceinline__ RingPiece ring_piece(const int* __restrict__ pieces, int p) {
+  const int* q = pieces + 5 * (long long)p;
+  return {__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3), __ldg(q + 4)};
+}
+
+// A producer's place in the block's sequence of stages: the stage of
+// tiles from c0 of piece p (the block's pieces with tiles, in order).
+struct RingCursor {
+  int p;
+  RingPiece pc;
+  int c0;
+  bool live;  // false past the block's last piece
+};
+
+// The first piece with tiles at or after c.p, stepping by the grid.
+__device__ __forceinline__ void ring_seek(const int* __restrict__ pieces, int npieces,
+                                          RingCursor& c) {
+  for (; c.p < npieces; c.p += gridDim.x) {
+    c.pc = ring_piece(pieces, c.p);
+    if (c.pc.t1 > c.pc.t0) {
+      c.c0 = c.pc.t0;
+      c.live = true;
+      return;
+    }
+  }
+  c.live = false;
+}
+
+__device__ __forceinline__ RingCursor ring_start(const int* __restrict__ pieces, int npieces) {
+  RingCursor c;
+  c.p = blockIdx.x;
+  ring_seek(pieces, npieces, c);
+  return c;
+}
+
+__device__ __forceinline__ void ring_next(const int* __restrict__ pieces, int npieces, int chunk,
+                                          RingCursor& c) {
+  if (!c.live) return;
+  c.c0 += chunk;
+  if (c.c0 >= c.pc.t1) {
+    c.p += gridDim.x;
+    ring_seek(pieces, npieces, c);
+  }
+}
+
+// Lane's source index in the stage at c (0 past the stage's tiles).
+__device__ __forceinline__ int ring_src(const int* __restrict__ tile_src, int ntiles, int chunk,
+                                        const RingCursor& c, int lane) {
+  return c.live && lane < min(chunk, c.pc.t1 - c.c0)
+             ? __ldg(tile_src + (long long)c.pc.u * ntiles + c.c0 + lane) : 0;
+}
+
+template <typename T, int BN, int NB>
+__global__ void __launch_bounds__(kRingThreads, kRingBlocksPerSM)
+bell_spmm_ring_kernel(const __grid_constant__ CUtensorMap tile_map,  // [U * T, bm, BN]
+                      const int* __restrict__ row_ptr,   // [U, NRB + 1]
+                      const int* __restrict__ tile_src,  // [U, T]
+                      const T* __restrict__ xsrc,        // [Ux, S, BN, NB]
+                      const int* __restrict__ pieces,    // [NP, 5]: u, r0, r1, t0, t1
+                      float* __restrict__ out,           // [U, NRB, bm, NB]
+                      int npieces, int ntiles, int nrb, int bm, long long x_unit_stride,
+                      int chunk, int groups, int stage_bytes) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  constexpr int RB = BN * sizeof(T);  // bytes of a tile row
+  const int tile_bytes = bm * RB;
+  constexpr int XB = RB * NB;         // bytes of a tile's x block
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRingStages * stage_bytes);
+  uint64_t* empty = full + kRingStages;
+  const int cwarps = blockDim.x / 32 - kRingProducers;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA bytes' arrival and a producer warp's lanes
+      mbar_init(&empty[s], cwarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= cwarps) {
+    // Producers: stage k holds up to `chunk` consecutive tiles of one piece
+    // (one TMA load each, lane i the i-th) and their x blocks, copied by
+    // the warp's lanes in 16-byte cp.async pieces (one instruction moves
+    // 32 pieces; a bulk copy a block would double the TMA issues, which a
+    // warp makes one lane after another). The stages go to the
+    // kRingProducers warps in turn. A warp reads its next stage's sources
+    // before this stage's wait, so their latency hides under it.
+    const int pw = warp - cwarps;
+    RingCursor cur = ring_start(pieces, npieces);
+    for (int i = 0; i < pw; ++i) ring_next(pieces, npieces, chunk, cur);
+    int src = ring_src(tile_src, ntiles, chunk, cur, lane);
+    for (int k = pw; cur.live; k += kRingProducers) {
+      RingCursor nx = cur;
+      for (int i = 0; i < kRingProducers; ++i) ring_next(pieces, npieces, chunk, nx);
+      const int nsrc = ring_src(tile_src, ntiles, chunk, nx, lane);
+      const int n = min(chunk, cur.pc.t1 - cur.c0);
+      const int s = k % kRingStages;
+      if (k >= kRingStages) mbar_wait(&empty[s], ((k / kRingStages) & 1) ^ 1);
+      if (lane == 0) mbar_expect_tx(&full[s], (unsigned)n * tile_bytes);
+      __syncwarp();
+      unsigned char* st = smem + s * stage_bytes;
+      if (lane < n)  // the tiles first: they need no source index
+        tma_load_3d(st + lane * tile_bytes, &tile_map, &full[s], 0, 0,
+                    cur.pc.u * ntiles + cur.c0 + lane);
+      constexpr int kPieces = XB / 16;  // 16-byte pieces of an x block
+      const T* x_u = xsrc + cur.pc.u * x_unit_stride;
+      for (int i0 = 0; i0 < n * kPieces; i0 += 32) {
+        const int i = i0 + lane;
+        const int j = min(i / kPieces, 31);  // the piece's tile, whose source lane j holds
+        const int src_j = __shfl_sync(0xffffffffu, src, j);
+        if (i < n * kPieces)
+          cp_async_16(st + chunk * tile_bytes + i * 16,
+                      x_u + (long long)src_j * BN * NB + (i - j * kPieces) * (16 / sizeof(T)),
+                      16);
+      }
+      mbar_arrive_cp_async(&full[s]);
+      cur = nx;
+      src = nsrc;
+    }
+    return;
+  }
+
+  // Consumers: a group of bm * NB threads, one output (m, b) each, owns a
+  // block-row at a time; the block's rows go to the groups in turn, piece
+  // after piece, so a group's next row is `groups` rows on. Each thread
+  // keeps its output's chain in a register over the row's whole run,
+  // whichever stages it spans, and writes it once.
+  const int gs = bm * NB;
+  const int g = threadIdx.x / gs;
+  const int m = threadIdx.x % bm;
+  const int b = (threadIdx.x % gs) / bm;
+  const bool active = g < groups;
+  const int swz = ((m * RB) >> 7) & (RB / 16 - 1);
+  int base = 0;  // rows handed out so far, modulo groups
+  int k = 0;     // stages consumed
+  RingPiece next;  // the next piece's record, read a piece ahead
+  if (blockIdx.x < npieces) next = ring_piece(pieces, blockIdx.x);
+  for (int p = blockIdx.x; p < npieces; p += gridDim.x) {
+    const RingPiece pc = next;
+    if (p + gridDim.x < npieces) next = ring_piece(pieces, p + gridDim.x);
+    const int* ptr = row_ptr + (long long)pc.u * (nrb + 1);
+    float* out_u = out + (long long)pc.u * nrb * bm * NB;
+    int row = pc.r0 + (g - base + groups) % groups;
+    int rb = 0, re = 0, nrb_ = 0, nre_ = 0;  // this row's run, and the next row's
+    if (active && row < pc.r1) {
+      rb = __ldg(ptr + row);
+      re = __ldg(ptr + row + 1);
+      if (row + groups < pc.r1) {
+        nrb_ = __ldg(ptr + row + groups);
+        nre_ = __ldg(ptr + row + groups + 1);
+      }
+    }
+    float acc = 0.0f;
+    for (int c0 = pc.t0; c0 < pc.t1; c0 += chunk, ++k) {
+      const int c1 = min(c0 + chunk, pc.t1);
+      const int s = k % kRingStages;
+      const T* st = reinterpret_cast<const T*>(smem + s * stage_bytes);
+      const T* xs = reinterpret_cast<const T*>(smem + s * stage_bytes + chunk * tile_bytes);
+      mbar_wait(&full[s], (k / kRingStages) & 1);
+      while (active && row < pc.r1) {
+        const int hi = min(re, c1);
+        for (int t = max(rb, c0); t < hi; ++t)  // the row's tiles in this stage, in order
+          acc = ring_row<T, BN, NB>(st + ((t - c0) * bm + m) * BN, swz,
+                                    xs + (t - c0) * BN * NB, b, acc);
+        if (re > c1) break;  // the row goes on in the next stage
+        out_u[((long long)row * bm + m) * NB + b] = acc;
+        acc = 0.0f;
+        row += groups;
+        rb = nrb_;
+        re = nre_;
+        if (row + groups < pc.r1) {
+          nrb_ = __ldg(ptr + row + groups);
+          nre_ = __ldg(ptr + row + groups + 1);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+    }
+    for (; active && row < pc.r1; row += groups)  // a piece with no tiles: its rows are 0
+      out_u[((long long)row * bm + m) * NB + b] = 0.0f;
+    base = (base + pc.r1 - pc.r0) % groups;
+  }
+}
+
+// The TMA swizzle that spreads a tile row of `rb` bytes over the banks.
+inline CUtensorMapSwizzle ring_swizzle(int rb) {
+  switch (rb) {
+    case 32:
+      return CU_TENSOR_MAP_SWIZZLE_32B;
+    case 64:
+      return CU_TENSOR_MAP_SWIZZLE_64B;
+    case 128:
+      return CU_TENSOR_MAP_SWIZZLE_128B;
+  }
+  return CU_TENSOR_MAP_SWIZZLE_NONE;  // 16 bytes: one chunk a row
+}
+
+// What one thread's launches of one instantiation keep between calls.
+template <typename T, int BN, int NB>
+struct RingHost {
+  int dev = -1;  // the device of the last launch, whose SM count is `sms`
+  int sms = 0;
+  size_t smem = 0;  // the shared memory limit raised so far (it grows with bm)
+  const void* tiles = nullptr;  // the tile set `map` describes
+  long long rows = 0;
+  int bm = 0;
+  CUtensorMap map;
+};
+
+template <typename T, int BN, int NB>
+int launch_ring_shape(const void* tiles, const void* row_ptr, const void* tile_src,
+                      const void* xsrc, const void* pieces, void* out, int npieces, int units,
+                      int ntiles, int nrb, int bm, long long x_unit_stride, void* stream) {
+  constexpr int RB = BN * sizeof(T);
+  const int tile_bytes = bm * RB;
+  const int chunk = max(1, min(kRingChunkMax, kRingStageBytes / tile_bytes));
+  const int stage_bytes = (chunk * (tile_bytes + RB * NB) + 1023) / 1024 * 1024;
+  const size_t smem = (size_t)kRingStages * stage_bytes + 2 * kRingStages * sizeof(uint64_t) +
+                      1024;  // and the 1024-byte alignment of the stages
+  const int groups = max(1, kRingConsumers / (bm * NB));
+  const int threads = (groups * bm * NB + 31) / 32 * 32 + 32 * kRingProducers;
+  if ((long long)units * ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // The host's part of a launch is on the solvers' critical path once the
+  // kernel is short, so each thread keeps the last tile set's tensor map,
+  // the device whose SM count it read, and the shared memory limit it
+  // raised there.
+  thread_local RingHost<T, BN, NB> host;
+  auto kernel = bell_spmm_ring_kernel<T, BN, NB>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (host.dev != dev) {
+    e = cudaDeviceGetAttribute(&host.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    host.dev = dev;
+    host.smem = 0;
+  }
+  if (smem > host.smem) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    host.smem = smem;
+  }
+  const long long rows = (long long)units * ntiles;
+  if (host.tiles != tiles || host.rows != rows || host.bm != bm) {
+    const cuuint64_t dims[3] = {(cuuint64_t)BN, (cuuint64_t)bm, (cuuint64_t)rows};
+    const cuuint64_t strides[2] = {(cuuint64_t)RB, (cuuint64_t)tile_bytes};
+    const cuuint32_t box[3] = {(cuuint32_t)BN, (cuuint32_t)bm, 1};
+    const CUtensorMapDataType dtype = sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+    host.tiles = nullptr;
+    if (!make_map(&host.map, tiles, 3, dims, strides, box, ring_swizzle(RB), dtype))
+      return (int)cudaErrorInvalidValue;
+    host.tiles = tiles;
+    host.rows = rows;
+    host.bm = bm;
+  }
+  const int grid = min(npieces, kRingBlocksPerSM * host.sms);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      host.map, static_cast<const int*>(row_ptr), static_cast<const int*>(tile_src),
+      static_cast<const T*>(xsrc), static_cast<const int*>(pieces), static_cast<float*>(out),
+      npieces, ntiles, nrb, bm, x_unit_stride, chunk, groups, stage_bytes);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int BN>
+int launch_ring_bn(const void* tiles, const void* row_ptr, const void* tile_src,
+                   const void* xsrc, const void* pieces, void* out, int npieces, int units,
+                   int ntiles, int nrb, int bm, int batch, long long x_unit_stride,
+                   void* stream) {
+#define RING_BATCH(NB)                                                                     \
+  case NB:                                                                                 \
+    return launch_ring_shape<T, BN, NB>(tiles, row_ptr, tile_src, xsrc, pieces, out,       \
+                                        npieces, units, ntiles, nrb, bm, x_unit_stride,    \
+                                        stream);
+  switch (batch) {
+    RING_BATCH(1)
+    RING_BATCH(2)
+    RING_BATCH(3)
+  }
+#undef RING_BATCH
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_ring(const void* tiles, const void* row_ptr, const void* tile_src, const void* xsrc,
+                const void* pieces, void* out, int npieces, int units, int ntiles, int nrb,
+                int bm, int bn, int batch, long long x_unit_stride, void* stream) {
+  if (npieces == 0) return (int)cudaSuccess;
+  if (bm % 8 || bm > 32 || batch < 1 || batch > kRingMaxBatch) return (int)cudaErrorInvalidValue;
+  // TMA and the bulk copies read from 16-byte aligned bases (the wrapper
+  // refuses others first).
+  if ((reinterpret_cast<uintptr_t>(tiles) | reinterpret_cast<uintptr_t>(xsrc)) % 16)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)units * ntiles == 0)  // no tile: every row is 0
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * (size_t)units * nrb * bm * batch,
+                                (cudaStream_t)stream);
+  switch (bn) {
+    case 8:
+      return launch_ring_bn<T, 8>(tiles, row_ptr, tile_src, xsrc, pieces, out, npieces, units,
+                                  ntiles, nrb, bm, batch, x_unit_stride, stream);
+    case 16:
+      return launch_ring_bn<T, 16>(tiles, row_ptr, tile_src, xsrc, pieces, out, npieces, units,
+                                   ntiles, nrb, bm, batch, x_unit_stride, stream);
+    case 32:
+      return launch_ring_bn<T, 32>(tiles, row_ptr, tile_src, xsrc, pieces, out, npieces, units,
+                                   ntiles, nrb, bm, batch, x_unit_stride, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -468,6 +872,17 @@ SIMT_ENTRY(bell_spmm_simt_f16, __half)
 STREAM_ENTRY(bell_spmm_stream_f32, float)
 STREAM_ENTRY(bell_spmm_stream_f16, __half)
 #undef STREAM_ENTRY
+
+#define RING_ENTRY(NAME, T)                                                                 \
+  int NAME(const void* tiles, const void* row_ptr, const void* tile_src, const void* xsrc,  \
+           const void* pieces, void* out, int npieces, int units, int ntiles, int nrb,      \
+           int bm, int bn, int batch, long long x_unit_stride, void* stream) {              \
+    return launch_ring<T>(tiles, row_ptr, tile_src, xsrc, pieces, out, npieces, units,      \
+                          ntiles, nrb, bm, bn, batch, x_unit_stride, stream);               \
+  }
+RING_ENTRY(bell_spmm_ring_f32, float)
+RING_ENTRY(bell_spmm_ring_f16, __half)
+#undef RING_ENTRY
 
 REPRO_ERROR_STRING(bell_spmm)
 

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (gmm.cu, flash_attention.cu): mbarriers, TMA tile loads, wgmma
-// shared-memory descriptors and products, register reallocation between
-// warpgroups, and the host-side tensor-map encoder.
+// Hopper (sm_90a) building blocks shared by the port's kernels (gmm.cu,
+// flash_attention.cu, bell_spmm.cu's ring variant): mbarriers (a cp.async
+// arrival among them), TMA tile loads, wgmma shared-memory descriptors and
+// products, register reallocation between warpgroups, and the host-side
+// tensor-map encoder.
 #pragma once
 
 #include <cuda.h>
@@ -25,6 +26,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// An arrival on the mbarrier once every cp.async this thread has issued so
+// far has landed; the barrier's count includes it (.noinc).
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // Spin until the phase of the given parity has completed.
@@ -396,15 +404,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first) in the given swizzle;
-// out-of-bounds reads are zeros.
+// A tensor map of `rank` dims (innermost first, at most 3), bf16 unless
+// another element type is given, in the given swizzle; out-of-bounds reads
+// are zeros.
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                      const cuuint64_t* strides, const cuuint32_t* box,
-                     CUtensorMapSwizzle swizzle) {
+                     CUtensorMapSwizzle swizzle,
+                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+  return encode(map, dtype, rank, const_cast<void*>(base), dims,
                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

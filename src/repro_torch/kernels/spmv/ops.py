@@ -12,14 +12,18 @@ over the unit axis. On a CUDA tensor it launches one of the hand-written
 kernels of ``csrc/bell_spmm.cu`` (built at first use), the variant that
 :func:`spmm_variant` names from type and shape alone, before the launch:
 
+* ``ring`` — the ``stream`` shapes at narrow batch widths (B up to
+  ``RING_MAX_BATCH``): a persistent grid walks pieces of whole block-rows
+  (:func:`ring_pieces`), a producer warp streams each piece's tiles
+  through a TMA ring, a thread per output keeps its chain in a register;
 * ``stream`` — ``bm`` a multiple of 8 up to 32 and ``bn`` in {8, 16,
-  32}, any B: a block per span of block-rows (:func:`row_spans`), tiles
-  streamed through a ``cp.async`` ring, a register patch of outputs a
-  thread;
+  32}, the wider B: a block per span of block-rows (:func:`row_spans`),
+  tiles streamed through a ``cp.async`` ring, a register patch of
+  outputs a thread;
 * ``simt`` — every other shape, within its shared memory
   (:func:`simt_limit`): a block per (unit, block-row, column chunk).
 
-Both keep one summation order, so column b of a result is bitwise the
+All keep one summation order, so column b of a result is bitwise the
 same whatever B and whichever variant ran. On a CPU tensor it runs the
 plain version :func:`repro_torch.kernels.spmv.ref.bell_spmm_plain`.
 There is no other path: a tensor elsewhere raises.
@@ -47,7 +51,7 @@ from repro_torch.kernels.spmv.ref import bell_spmm_plain
 from repro_torch.sparse.bell import BellShard, pad_x_blocks
 
 __all__ = ["BLOCK_SIZES", "VARIANTS", "BellTiles", "bell_tiles", "bell_spmm", "host_tensor",
-           "pack_inputs",
+           "pack_inputs", "ring_pieces",
            "row_spans", "simt_limit", "spmm_shard", "spmm_shard_ref", "spmm_variant",
            "spmv_shard", "spmv_shard_ref"]
 
@@ -55,10 +59,15 @@ __all__ = ["BLOCK_SIZES", "VARIANTS", "BellTiles", "bell_tiles", "bell_spmm", "h
 # the stream variant's shapes below, every other one on simt.
 BLOCK_SIZES = (8, 16, 32, 64, 128)
 _TYPES = {torch.float32: "f32", torch.float16: "f16"}
-VARIANTS = ("stream", "simt")
-# The shapes csrc/bell_spmm.cu instantiates for stream (launch_stream).
+VARIANTS = ("ring", "stream", "simt")
+# The shapes csrc/bell_spmm.cu instantiates for stream (launch_stream), and
+# for ring at batch widths up to RING_MAX_BATCH (launch_ring).
 STREAM_MAX_BM = 32  # bm a multiple of 8 up to this
 STREAM_BN = (8, 16, 32)
+# ring beat stream at B = 1 to 3 on the banded and the 64^3 stencil plans,
+# float32 and float16; at B = 4 stream's 1 x 4 patch won on float16 banded
+# tiles (measured on an H100; PERF.md, Findings).
+RING_MAX_BATCH = 3
 # The simt kernel's limits (csrc/bell_spmm.cu): a block holds at most
 # SIMT_MAX_OUTPUTS outputs (bm x its column chunk) and SIMT_MAX_SMEM_BYTES
 # of float32 tile and x block in shared memory.
@@ -69,15 +78,20 @@ SIMT_MAX_SMEM_BYTES = 96 * 1024
 # row, at most SPAN_TILES_PER_ROW tiles for each of them.
 SPAN_OUT_ROWS = 64
 SPAN_TILES_PER_ROW = 4
+# A ring piece holds about RING_PIECE_BYTES of tiles and at most
+# RING_PIECE_ROWS block-rows (a run of empty rows stays one piece's work).
+RING_PIECE_BYTES = 32 * 1024
+RING_PIECE_ROWS = 256
 
 
 def spmm_variant(dtype: torch.dtype, bm: int, bn: int, batch: int) -> str:
     """The CUDA kernel that takes ``dtype`` tiles of ``bm × bn`` at batch
-    width ``batch``: ``stream`` for the shapes it is instantiated for (bm
-    a multiple of 8 up to 32, bn in {8, 16, 32}), at every B ≥ 1;
+    width ``batch``: for the shapes ``ring`` and ``stream`` are
+    instantiated for (bm a multiple of 8 up to 32, bn in {8, 16, 32}),
+    ``ring`` up to ``RING_MAX_BATCH`` columns and ``stream`` past it;
     ``simt`` otherwise. Pure: type and shape alone decide."""
     if dtype in _TYPES and bm % 8 == 0 and bm <= STREAM_MAX_BM and bn in STREAM_BN:
-        return "stream"
+        return "ring" if batch <= RING_MAX_BATCH else "stream"
     return "simt"
 
 
@@ -125,6 +139,35 @@ def row_spans(row_ptr: np.ndarray, bm: int) -> np.ndarray:
     return np.asarray(spans, dtype=np.int32).reshape(-1, 3)
 
 
+def ring_pieces(row_ptr: np.ndarray, tiles_per_piece: int) -> np.ndarray:
+    """``[NP, 5]`` int32 rows ``(unit, r0, r1, t0, t1)``: every unit's
+    block-rows cut into pieces of consecutive rows, the work list that
+    the ``ring`` kernel's blocks walk. A piece's tiles are the contiguous
+    run ``t0 = row_ptr[u, r0] : t1 = row_ptr[u, r1]``. Every (unit, row)
+    lies in exactly one piece, empty rows included, and a row is never
+    split.
+
+    A row joins the piece of the row before it unless it starts a unit,
+    is a multiple of ``RING_PIECE_ROWS``, or its first tile lies past a later
+    multiple of ``tiles_per_piece`` than that row's first tile: so a
+    piece's rows start within ``tiles_per_piece`` tiles of each other,
+    and a piece holds about that many tiles, more only by its last
+    row's. Vectorised: one pass over the row pointer."""
+    row_ptr = np.asarray(row_ptr, dtype=np.int64)
+    u_n, nrb = row_ptr.shape[0], row_ptr.shape[1] - 1
+    if u_n == 0 or nrb == 0:
+        return np.zeros((0, 5), np.int32)
+    bucket = row_ptr[:, :-1] // max(1, int(tiles_per_piece))
+    new = np.zeros((u_n, nrb), bool)
+    new[:, 1:] = bucket[:, 1:] != bucket[:, :-1]
+    new[:, ::RING_PIECE_ROWS] = True
+    unit, r0 = np.nonzero(new)  # units in order, rows ascending
+    r1 = np.append(r0[1:], nrb)
+    r1[np.append(unit[1:] != unit[:-1], True)] = nrb  # a unit's last piece
+    return np.stack([unit, r0, r1, row_ptr[unit, r0], row_ptr[unit, r1]],
+                    axis=1).astype(np.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class BellTiles:
     """One stacked tile set on a device, as the kernel reads it.
@@ -133,13 +176,15 @@ class BellTiles:
     block-row order; ``row_ptr[u, r] : row_ptr[u, r + 1]`` is block-row
     r's run. Padding tiles sit past ``counts[u]`` and are never read.
     ``spans`` is :func:`row_spans` of that row pointer, the ``stream``
-    kernel's grid, computed once here."""
+    kernel's grid, and ``pieces`` :func:`ring_pieces` of it, the ``ring``
+    kernel's work list, both computed once here."""
 
     tiles: torch.Tensor  # [U, T, bm, bn] float32 or float16
     tile_row: torch.Tensor  # [U, T] int32 global block-row
     tile_src: torch.Tensor  # [U, T] int32 index into the unit's x source
     row_ptr: torch.Tensor  # [U, NRB + 1] int32
     spans: torch.Tensor  # [NS, 3] int32 (unit, r0, r1)
+    pieces: torch.Tensor  # [NP, 5] int32 (unit, r0, r1, t0, t1)
     counts: np.ndarray  # [U] int64 real tiles per unit (host)
     nrb: int
     src_bound: int  # 1 + the largest tile_src of a real tile (0 if none)
@@ -227,6 +272,7 @@ def bell_tiles(
         tile_src=dev(tile_src),
         row_ptr=dev(row_ptr),
         spans=dev(row_spans(row_ptr, bm)),
+        pieces=dev(ring_pieces(row_ptr, RING_PIECE_BYTES // (bm * bn * tiles.element_size()))),
         counts=counts,
         nrb=int(nrb),
         src_bound=src_bound,
@@ -235,10 +281,11 @@ def bell_tiles(
 
 def _library() -> ctypes.CDLL:
     lib = load("bell_spmm")
-    for variant, pointers in (("simt", 5), ("stream", 6)):  # stream also takes the spans
+    # stream also takes the spans; ring the pieces and the unit count.
+    for variant, pointers, ints in (("simt", 5, 6), ("stream", 6, 6), ("ring", 6, 7)):
         for tname in _TYPES.values():
             fn = getattr(lib, f"bell_spmm_{variant}_{tname}")
-            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [
+            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [
                 ctypes.c_longlong,
                 ctypes.c_void_p,
             ]
@@ -255,8 +302,8 @@ def bell_spmm(bt: BellTiles, xsrc: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors launch the kernel that :func:`spmm_variant` names on the
     current stream and add one to ``bell_spmm.launches`` and to that
-    variant's ``bell_spmm.variant_launches``; the ``stream`` kernel wants
-    ``tiles`` and ``xsrc`` 16-byte aligned, and a shape past the ``simt``
+    variant's ``bell_spmm.variant_launches``; the ``ring`` and ``stream``
+    kernels want ``tiles`` and ``xsrc`` 16-byte aligned, and a shape past the ``simt``
     kernel's shared memory (:func:`simt_limit`) raises ``ValueError``
     before the launch. CPU tensors run the plain version."""
     tiles = bt.tiles
@@ -288,8 +335,8 @@ def bell_spmm(bt: BellTiles, xsrc: torch.Tensor) -> torch.Tensor:
         raise ValueError("xsrc must be contiguous")
     batch = int(xsrc.shape[3])
     variant = spmm_variant(tiles.dtype, bm, bn, batch)
-    if variant == "stream" and (tiles.data_ptr() % 16 or xsrc.data_ptr() % 16):
-        raise ValueError("the stream kernel copies 16-byte pieces: tiles and xsrc must "
+    if variant != "simt" and (tiles.data_ptr() % 16 or xsrc.data_ptr() % 16):
+        raise ValueError(f"the {variant} kernel copies 16-byte pieces: tiles and xsrc must "
                          "start on 16-byte boundaries")
     if variant == "simt":
         limit = simt_limit(bm, bn, batch)
@@ -301,7 +348,11 @@ def bell_spmm(bt: BellTiles, xsrc: torch.Tensor) -> torch.Tensor:
     fn = getattr(lib, f"bell_spmm_{variant}_{_TYPES[tiles.dtype]}")
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream(tiles.device).cuda_stream
-        if variant == "stream":
+        if variant == "ring":
+            rc = fn(tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(),
+                    xsrc.data_ptr(), bt.pieces.data_ptr(), out.data_ptr(),
+                    int(bt.pieces.shape[0]), u_n, t_n, bt.nrb, bm, bn, batch, ustride, stream)
+        elif variant == "stream":
             rc = fn(tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(),
                     xsrc.data_ptr(), bt.spans.data_ptr(), out.data_ptr(),
                     int(bt.spans.shape[0]), t_n, bt.nrb, bm, bn, batch, ustride, stream)

@@ -62,13 +62,14 @@ from repro_torch.models import build, lm_from_numpy, lm_to_numpy
 from repro_torch.optim import init_opt
 from repro_torch.train import TrainLoop, make_train_step
 from repro_torch.train.step import value_and_grad
-from repro_torch.pmvc.dist import Communicator, make_pmvc_step, make_unit_mesh, pad_x
+from repro_torch.pmvc.dist import Communicator, hoist_tiles, make_pmvc_step, make_unit_mesh, pad_x
 from repro_torch.pmvc.plan_device import pack_units
 from repro_torch.runtime import FaultInjector
 from repro_torch.serve import Request, ServeEngine, SparseServeEngine, Status, greedy_generate
 from repro_torch.sparse.bell import pack_bell, tile_counts
 from repro_torch.sparse.formats import COO
 from repro_torch.sparse.generate import banded_coo, random_coo
+from repro_torch.kernels.spmv.ops import RING_MAX_BATCH
 
 pytestmark = pytest.mark.gpu
 
@@ -93,19 +94,25 @@ def _tile_set(rng, bm, bn, u_n=3, nrb=20, nsrc=25, t_max=30):
     return tiles, rows, src, counts, nrb, nsrc
 
 
-def _simt(bt, x):
-    """The simt kernel by its C entry point, on the same inputs."""
+def _variant(name, bt, x):
+    """One variant by its C entry point, on the same inputs, whichever the
+    wrapper would choose."""
     from repro_torch.kernels.spmv.ops import _library
 
     u_n, t_n, bm, bn = bt.tiles.shape
     b = x.shape[3]
     out = torch.empty((u_n, bt.nrb, bm, b), dtype=torch.float32, device=x.device)
-    name = "f16" if bt.tiles.dtype == torch.float16 else "f32"
+    tname = "f16" if bt.tiles.dtype == torch.float16 else "f32"
     ustride = 0 if x.shape[0] == 1 else x.shape[1] * bn * b
-    rc = getattr(_library(), f"bell_spmm_simt_{name}")(
-        bt.tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(), x.data_ptr(),
-        out.data_ptr(), u_n, t_n, bt.nrb, bm, bn, b, ustride,
-        torch.cuda.current_stream().cuda_stream)
+    ptrs = (bt.tiles.data_ptr(), bt.row_ptr.data_ptr(), bt.tile_src.data_ptr(), x.data_ptr())
+    if name == "ring":
+        args = (*ptrs, bt.pieces.data_ptr(), out.data_ptr(), int(bt.pieces.shape[0]), u_n, t_n)
+    elif name == "stream":
+        args = (*ptrs, bt.spans.data_ptr(), out.data_ptr(), int(bt.spans.shape[0]), t_n)
+    else:
+        args = (*ptrs, out.data_ptr(), u_n, t_n)
+    rc = getattr(_library(), f"bell_spmm_{name}_{tname}")(
+        *args, bt.nrb, bm, bn, b, ustride, torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     return out
 
@@ -133,7 +140,7 @@ def test_kernel_matches_plain_and_is_column_stable(cuda, bm, bn, dtype, tol, b):
     # launch, and the stream kernel's result is the simt kernel's.
     for j in range(b):
         assert torch.equal(y[..., j:j + 1], bell_spmm(bt, x[..., j:j + 1].contiguous()))
-    assert torch.equal(y, _simt(bt, x))
+    assert torch.equal(y, _variant("simt", bt, x))
 
 
 def test_kernel_refuses_misaligned_sources(cuda):
@@ -146,8 +153,8 @@ def test_kernel_refuses_misaligned_sources(cuda):
         bell_spmm(bt, x)
 
 
-# Tile shapes off the kernel's sweep grid: (24, 16) reaches stream (a new
-# bm), the others simt.
+# Tile shapes off the kernel's sweep grid: (24, 16) reaches ring and stream
+# (a new bm), the others simt.
 @pytest.mark.parametrize("bm,bn", [(24, 16), (16, 24), (12, 12), (4, 4), (16, 12)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float16, 2e-2)])
 @pytest.mark.parametrize("b", [1, 8])
@@ -158,7 +165,8 @@ def test_kernel_takes_any_tile_shape(cuda, bm, bn, dtype, tol, b):
     x = torch.as_tensor(rng.standard_normal((3, nsrc, bn, b)).astype(np.float32),
                         device=cuda).to(dtype)
     variant = spmm_variant(dtype, bm, bn, b)
-    assert variant == ("stream" if (bm, bn) == (24, 16) else "simt")
+    wide = "ring" if b <= RING_MAX_BATCH else "stream"
+    assert variant == (wide if (bm, bn) == (24, 16) else "simt")
     before = bell_spmm.variant_launches[variant]
     y = bell_spmm(bt, x)
     assert bell_spmm.variant_launches[variant] == before + 1
@@ -166,7 +174,134 @@ def test_kernel_takes_any_tile_shape(cuda, bm, bn, dtype, tol, b):
     assert float((y - y_plain).abs().max() / y_plain.abs().max()) <= tol
     for j in range(b):
         assert torch.equal(y[..., j:j + 1], bell_spmm(bt, x[..., j:j + 1].contiguous()))
-    assert torch.equal(y, _simt(bt, x))
+    assert torch.equal(y, _variant("simt", bt, x))
+
+
+def _ring_tile_set(rng, bm, bn, u_n=4, nrb=300, nsrc=37):
+    """Rows of 0, 1, a few and 17 or more tiles, and a unit with none."""
+    per = rng.integers(0, 6, size=(u_n, nrb))
+    per[:, ::7] = 0
+    per[:, 3::11] = 1
+    per[:, 5::13] = rng.integers(17, 40, size=per[:, 5::13].shape)
+    per[2] = 0
+    counts = per.sum(axis=1)
+    t = int(counts.max()) + 2
+    tiles = np.zeros((u_n, t, bm, bn), np.float32)
+    rows = np.zeros((u_n, t), np.int32)
+    src = np.zeros((u_n, t), np.int32)
+    for u, c in enumerate(counts):
+        tiles[u, :c] = rng.standard_normal((c, bm, bn))
+        rows[u, :c] = np.repeat(np.arange(nrb), per[u])
+        src[u, :c] = rng.integers(0, nsrc, size=c)
+    return tiles, rows, src, counts, nrb, nsrc
+
+
+@pytest.mark.parametrize("bm,bn", [(8, 8), (16, 16), (24, 16), (32, 32), (16, 32), (32, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("ux", ["U", 1])
+def test_ring_is_bitwise_stream_and_simt(cuda, bm, bn, dtype, ux):
+    """The ring variant at every B it takes, on rows of 0, 1 and 17+
+    tiles and a unit with none: bitwise the stream and simt kernels on the
+    same inputs, per-unit sources and one shared source, the wrapper's
+    launch counted on ring."""
+    rng = np.random.default_rng(bm * 100 + bn)
+    tiles, rows, src, counts, nrb, nsrc = _ring_tile_set(rng, bm, bn)
+    bt = bell_tiles(torch.as_tensor(tiles, device=cuda).to(dtype), rows, src, counts, nrb)
+    u_x = len(counts) if ux == "U" else 1
+    for b in range(1, RING_MAX_BATCH + 1):
+        x = torch.as_tensor(rng.standard_normal((u_x, nsrc, bn, b)).astype(np.float32),
+                            device=cuda).to(dtype)
+        assert spmm_variant(dtype, bm, bn, b) == "ring"
+        before = bell_spmm.variant_launches["ring"]
+        y = bell_spmm(bt, x)
+        assert bell_spmm.variant_launches["ring"] == before + 1
+        assert torch.equal(y, _variant("stream", bt, x)), b
+        assert torch.equal(y, _variant("simt", bt, x)), b
+        for j in range(b):
+            assert torch.equal(y[..., j:j + 1], bell_spmm(bt, x[..., j:j + 1].contiguous()))
+
+
+def test_ring_raises_its_shared_memory_as_tiles_shrink(cuda):
+    """One instantiation (float32, bn 16, B = 3) on a fresh thread, whose
+    launcher state starts empty: 24-row tiles, then 8-row tiles, whose
+    16-tile stages need more shared memory than the 5-tile stages of the
+    first. Both launch, bitwise stream."""
+    import threading
+
+    rng = np.random.default_rng(8)
+    cases = []
+    for bm in (24, 8):
+        tiles, rows, src, counts, nrb, nsrc = _ring_tile_set(rng, bm, 16)
+        bt = bell_tiles(torch.as_tensor(tiles, device=cuda), rows, src, counts, nrb)
+        x = torch.as_tensor(rng.standard_normal((1, nsrc, 16, 3)).astype(np.float32), device=cuda)
+        cases.append((bt, x))
+    got = []
+
+    def launch():
+        try:
+            got.extend(bell_spmm(bt, x) for bt, x in cases)
+        except RuntimeError as e:  # a refused launch, reported to the test's thread
+            got.append(e)
+
+    t = threading.Thread(target=launch)
+    t.start()
+    t.join()
+    assert len(got) == 2 and all(isinstance(y, torch.Tensor) for y in got), got
+    for (bt, x), y in zip(cases, got, strict=True):
+        assert torch.equal(y, _variant("stream", bt, x))
+
+
+def _stencil27(n):
+    """HPCG's 27-point stencil on an n^3 grid (26 on the diagonal, -1 off it)."""
+    iz, iy, ix = (a.ravel() for a in np.meshgrid(*(np.arange(n),) * 3, indexing="ij"))
+    rows, cols, vals = [], [], []
+    for dz, dy, dx in np.ndindex(3, 3, 3):
+        jx, jy, jz = ix + dx - 1, iy + dy - 1, iz + dz - 1
+        ok = (jx >= 0) & (jx < n) & (jy >= 0) & (jy < n) & (jz >= 0) & (jz < n)
+        rows.append(np.nonzero(ok)[0])
+        cols.append(jx[ok] + n * (jy[ok] + n * jz[ok]))
+        vals.append(np.full(int(ok.sum()), 26.0 if (dx, dy, dz) == (1, 1, 1) else -1.0))
+    row, col = np.concatenate(rows), np.concatenate(cols)
+    order = np.lexsort((col, row))
+    return COO((n**3, n**3), row[order].astype(np.int32), col[order].astype(np.int32),
+               np.concatenate(vals)[order].astype(np.float32))
+
+
+@pytest.mark.parametrize("exchange", ["replicated", "selective"])
+def test_ring_on_the_stencil_plan_is_bitwise_stream(cuda, exchange):
+    """HPCG's stencil at 32^3 under NL-HC on 16 units (about 9 tiles a
+    row, as at 64^3): the ring kernel bitwise stream and simt on the plan's
+    own tiles at B = 1 to 3, float32 and float16, and the session's spmv
+    (ring at B = 1) within 1e-5 of the float64 oracle."""
+    sess = distribute(_stencil27(32), topology=Topology(4, 4), combo="NL-HC", block=16,
+                      exchange=exchange)
+    dp = sess.device_plan
+    rng = np.random.default_rng(7)
+    for dtype in (torch.float32, torch.float16):
+        bt = bell_tiles(hoist_tiles(dp.tiles, device=cuda).to(dtype), dp.tile_row,
+                        dp.tile_col, dp.real_tiles, dp.num_row_blocks)
+        assert float(np.diff(bt.row_ptr.cpu().numpy(), axis=1).mean()) > 5
+        for b in range(1, RING_MAX_BATCH + 1):
+            x = torch.as_tensor(rng.standard_normal((1, dp.num_col_blocks, 16, b)).astype(
+                np.float32), device=cuda).to(dtype)
+            y = bell_spmm(bt, x)
+            assert torch.equal(y, _variant("stream", bt, x)), (dtype, b)
+            assert torch.equal(y, _variant("simt", bt, x)), (dtype, b)
+    before = bell_spmm.variant_launches["ring"]
+    x = rng.standard_normal(32**3).astype(np.float32)
+    y, y_ref = sess.spmv(x), sess.spmv(x, executor="reference")
+    assert bell_spmm.variant_launches["ring"] > before
+    assert np.abs(y - y_ref).max() / np.abs(y_ref).max() < 1e-5
+
+
+def test_ring_refuses_misaligned_sources(cuda):
+    rng = np.random.default_rng(4)
+    tiles, rows, src, counts, nrb, nsrc = _tile_set(rng, 16, 16)
+    bt = bell_tiles(torch.as_tensor(tiles, device=cuda), rows, src, counts, nrb)
+    flat = torch.zeros(3 * nsrc * 16 + 1, device=cuda)
+    x = flat[1:].view(3, nsrc, 16, 1)  # 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="ring kernel copies 16-byte"):
+        bell_spmm(bt, x)
 
 
 def test_kernel_refuses_tiles_past_simt_shared_memory(cuda):
@@ -264,8 +399,8 @@ def test_session_on_the_card_matches_the_oracle(cuda):
 @pytest.mark.parametrize("fmt", [1, 2])
 def test_save_load_is_bitwise_on_the_card(cuda, tmp_path, exchange, fmt):
     """A lazily loaded session's first spmv materializes the archive,
-    hoists the tiles and launches ``stream``; B = 1 and B = 8 are bitwise
-    the saved session's."""
+    hoists the tiles and launches the variant ``spmm_variant`` names for
+    B = 1; B = 1 and B = 8 are bitwise the saved session's."""
     if fmt == 1 and exchange == "overlap:2":
         exchange = "overlap"  # v1 predates multi-wave plans
     a = banded_coo(3000, 40000, seed=1)
@@ -276,7 +411,9 @@ def test_save_load_is_bitwise_on_the_card(cuda, tmp_path, exchange, fmt):
     assert loaded.device.type == "cuda" and not loaded.is_materialized
     before = dict(bell_spmm.variant_launches)
     y1 = loaded.spmv(x[:1])
-    assert bell_spmm.variant_launches["stream"] > before["stream"]
+    dp = loaded.device_plan
+    assert bell_spmm.variant_launches[spmm_variant(torch.float32, dp.bm, dp.bn, 1)] > \
+        before[spmm_variant(torch.float32, dp.bm, dp.bn, 1)]
     assert bell_spmm.variant_launches["simt"] == before["simt"]
     assert np.array_equal(y1, sess.spmv(x[:1]))
     assert np.array_equal(loaded.spmv(x), sess.spmv(x))
@@ -400,7 +537,8 @@ def test_spmv_and_shard_map_run_inside_deterministic(cuda, tmp_path):
 def test_shard_map_on_an_nccl_group_of_one(cuda, tmp_path):
     """All units stacked on one rank of an NCCL group: within 1e-5 of
     the float64 oracle on every exchange, single and batched, the
-    recorded schedule the golden one, every contraction on ``stream``."""
+    recorded schedule the golden one, every contraction on the variant
+    ``spmm_variant`` names for its batch width."""
     import torch.distributed as dist
 
     dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
@@ -411,12 +549,14 @@ def test_shard_map_on_an_nccl_group_of_one(cuda, tmp_path):
         for exchange in ("replicated", "selective", "overlap:2"):
             sess = distribute(a, topology=Topology(2, 2), combo="NL-HC", exchange=exchange,
                               executor="shard_map")
-            before = dict(bell_spmm.variant_launches)
+            dp = sess.device_plan
             for xb in (x[0], x):
+                before = dict(bell_spmm.variant_launches)
                 y, y_ref = sess.spmv(xb), sess.spmv(xb, executor="reference")
                 assert np.abs(y - y_ref).max() / np.abs(y_ref).max() < 1e-5, exchange
-            assert bell_spmm.variant_launches["stream"] > before["stream"]
-            assert bell_spmm.variant_launches["simt"] == before["simt"]
+                named = spmm_variant(torch.float32, dp.bm, dp.bn, 1 if xb.ndim == 1 else len(xb))
+                ran = {v: bell_spmm.variant_launches[v] - before[v] for v in before}
+                assert ran[named] > 0 and sum(ran.values()) == ran[named], (exchange, ran)
             log = []
             dp = sess.device_plan
             step = make_pmvc_step(dp, make_unit_mesh(dp.num_units, comm=Communicator(log=log)),
@@ -431,13 +571,16 @@ def test_shard_map_on_an_nccl_group_of_one(cuda, tmp_path):
 @pytest.mark.parametrize("exchange", ["replicated", "selective", "overlap:2"])
 def test_schedule_audit_runs_on_the_card(cuda, exchange):
     """With no device given, the audit records the step on the card (no
-    process group): the golden schedule, through ``stream`` launches."""
+    process group): the golden schedule, through launches of the variant
+    ``spmm_variant`` names for its single vector."""
     sess = distribute(banded_coo(3000, 40000, seed=4), topology=Topology(2, 2), combo="NL-HC",
                       exchange=exchange)
-    before = bell_spmm.variant_launches["stream"]
+    dp = sess.device_plan
+    named = spmm_variant(torch.float32, dp.bm, dp.bn, 1)
+    before = bell_spmm.variant_launches[named]
     rep = audit_session(sess)
     assert rep.ok, str(rep)
-    assert bell_spmm.variant_launches["stream"] > before
+    assert bell_spmm.variant_launches[named] > before
     events = trace_pmvc_step(sess.device_plan, sess.selective, batch=8)
     assert schedule_signature(events) == rep.golden
 

@@ -27,6 +27,7 @@ from repro_torch.kernels.spmv import (
     bell_spmm_plain,
     bell_tiles,
     pack_inputs,
+    ring_pieces,
     row_spans,
     simt_limit,
     spmm_shard,
@@ -35,7 +36,13 @@ from repro_torch.kernels.spmv import (
     spmv_shard,
     spmv_shard_ref,
 )
-from repro_torch.kernels.spmv.ops import SPAN_OUT_ROWS, SPAN_TILES_PER_ROW
+from repro_torch.kernels.spmv.ops import (
+    RING_MAX_BATCH,
+    RING_PIECE_BYTES,
+    RING_PIECE_ROWS,
+    SPAN_OUT_ROWS,
+    SPAN_TILES_PER_ROW,
+)
 from repro_torch.pmvc.plan_device import pack_units
 from repro_torch.sparse.bell import pack_bell, pad_x_blocks
 from repro_torch.sparse.formats import COO
@@ -227,18 +234,68 @@ def test_row_spans_cover_every_row_once_and_balance_tiles(plan, bm):
     assert (np.diff(keys) > 0).all()
 
 
+# The ring kernel's work list over the same plans, and one shaped like
+# HPCG's 27-point stencil at 64^3 under NL-HC on 16 units (9 to 17 tiles
+# a row, 9.6 on average), cut to 512 block-rows a unit.
+RING_PLANS = {**SPAN_PLANS, "hpcg": _rng.choice(np.arange(9, 18), size=(16, 512),
+                                                  p=np.array([50, 20, 10, 8, 5, 3, 2, 1, 1]) / 100)}
+
+
+@pytest.mark.parametrize("plan", sorted(RING_PLANS))
+@pytest.mark.parametrize("tiles_per_piece", [RING_PIECE_BYTES // (16 * 16 * 4), 4, 1])
+def test_ring_pieces_cover_every_row_once_and_balance_tiles(plan, tiles_per_piece):
+    per_row = RING_PLANS[plan]
+    ptr = _row_ptr(per_row)
+    pieces = ring_pieces(ptr, tiles_per_piece)
+    assert pieces.dtype == np.int32 and pieces.shape[1] == 5
+    u_n, nrb = per_row.shape
+    covered = np.zeros(per_row.shape, np.int64)
+    for u, r0, r1, t0, t1 in pieces:
+        assert 0 <= u < u_n and 0 <= r0 < r1 <= nrb
+        covered[u, r0:r1] += 1
+        # One contiguous run of tiles: the rows' runs, end to end.
+        assert (t0, t1) == (ptr[u, r0], ptr[u, r1])
+        assert t1 - t0 == per_row[u, r0:r1].sum()
+        assert r1 - r0 <= RING_PIECE_ROWS
+        # Balanced: the rows start within tiles_per_piece tiles of the
+        # first, so only the last row's run carries the piece past it.
+        assert ptr[u, r1 - 1] - t0 < tiles_per_piece
+        assert t1 - t0 < tiles_per_piece + per_row[u, r1 - 1]
+        # Maximal: the piece stopped at the unit's end, at the row limit,
+        # or because the next row starts past the next multiple.
+        if r1 < nrb and r1 % RING_PIECE_ROWS:
+            assert ptr[u, r1] // tiles_per_piece != ptr[u, r1 - 1] // tiles_per_piece
+    np.testing.assert_array_equal(covered, 1)  # every (unit, row) exactly once
+    keys = pieces[:, 0].astype(np.int64) * (nrb + 1) + pieces[:, 1]
+    assert (np.diff(keys) > 0).all()  # units in order, rows ascending
+    if plan == "hpcg" and tiles_per_piece == 32:
+        # The cell's 16 x 16 float32 tiles: about 32 KiB a piece in three or
+        # four short rows, smaller only where a unit's end or the row limit cuts.
+        held = pieces[:, 4] - pieces[:, 3]
+        cut = (pieces[:, 2] == nrb) | (pieces[:, 2] % RING_PIECE_ROWS == 0) | (
+            (pieces[:, 1] % RING_PIECE_ROWS == 0) & (pieces[:, 1] > 0))
+        assert held[~cut].min() > 32 - 17
+        assert 3 <= np.median(pieces[:, 2] - pieces[:, 1]) <= 4
+
+
 def test_tile_set_carries_its_spans():
     dp = _plan(banded_coo, 4, 16, 16)
     bt = bell_tiles(torch.as_tensor(dp.tiles), dp.tile_row, dp.tile_col, dp.real_tiles,
                     dp.num_row_blocks)
     assert bt.spans.dtype == torch.int32
     np.testing.assert_array_equal(bt.spans.numpy(), row_spans(bt.row_ptr.numpy(), 16))
+    assert bt.pieces.dtype == torch.int32
+    per_piece = RING_PIECE_BYTES // (16 * 16 * 4)
+    np.testing.assert_array_equal(bt.pieces.numpy(), ring_pieces(bt.row_ptr.numpy(), per_piece))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("bm,bn,b,variant", [
-    (16, 16, 1, "stream"), (16, 16, 8, "stream"), (16, 16, 64, "stream"),  # the main path
-    (8, 8, 3, "stream"), (32, 32, 17, "stream"), (8, 32, 64, "stream"),
+    (16, 16, 1, "ring"), (16, 16, 8, "stream"), (16, 16, 64, "stream"),  # the main path
+    (8, 8, 3, "ring"), (32, 32, 17, "stream"), (8, 32, 64, "stream"),
+    # ring takes the stream shapes at B up to RING_MAX_BATCH, stream the wider B.
+    (16, 16, 2, "ring"), (16, 16, 3, "ring"), (16, 16, 4, "stream"), (32, 8, 1, "ring"),
+    (24, 32, 2, "ring"), (8, 128, 1, "simt"), (16, 24, 1, "simt"),
     (8, 128, 8, "simt"), (64, 16, 8, "simt"), (128, 128, 1, "simt"), (128, 128, 64, "simt"),
     # stream takes only what csrc/bell_spmm.cu instantiates: bm a multiple
     # of 8 up to 32, bn in {8, 16, 32}; every other shape goes to simt.
@@ -251,14 +308,17 @@ def test_spmm_variant(dtype, bm, bn, b, variant):
 
 
 def test_spmm_variant_sends_stream_only_its_instantiations():
-    """Every shape up to 40 x 40: stream exactly where launch_stream has an
-    instantiation, whatever the type and batch width."""
+    """Every shape up to 40 x 40: ring or stream exactly where launch_ring
+    and launch_stream have an instantiation, whatever the type; ring at B
+    up to RING_MAX_BATCH, stream past it."""
     for dtype in (torch.float32, torch.float16):
         for bm in range(1, 41):
             for bn in range(1, 41):
                 want = bm % 8 == 0 and bm <= 32 and bn in (8, 16, 32)
-                for b in (1, 8):
-                    assert (spmm_variant(dtype, bm, bn, b) == "stream") == want, (bm, bn)
+                for b in (1, 2, 3, 4, 5, 8):
+                    got = spmm_variant(dtype, bm, bn, b)
+                    assert (got == "stream") == (want and b > RING_MAX_BATCH), (bm, bn, b)
+                    assert (got == "ring") == (want and b <= RING_MAX_BATCH), (bm, bn, b)
 
 
 @pytest.mark.parametrize("bm,bn,b,fits", [
