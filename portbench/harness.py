@@ -7,10 +7,18 @@ the kernel's build (by its first launch, in the warm-up), the matrices
 (:mod:`portbench.matrices`), ``distribute`` (timed apart as ``plan_s``),
 the hoist of the tiles and the warm-up. After the window the program's
 state is freed and the reference checks a sample of the answers.
+
+A ``--trace 1`` run also turns the program's own tracer on
+(``repro_torch.trace``) from before ``distribute`` to the loop's end
+(the window and, on the card, the profiled slice after it), then
+copies its spans into the run's :class:`~portbench.trace.Spans` beside
+the benchmark's, and its counters onto ``Run.program_counters``. An
+untraced run leaves it off.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import importlib.util
@@ -33,6 +41,13 @@ ROOT = os.path.dirname(HERE)
 # Top-level module names that may not be loaded once the window closes:
 # JAX and the JAX package the program was ported from.
 BANNED = ("jax", "jaxlib", "flax", "repro")
+# The program's tracer's buffer in a traced run: spans for set-up, and
+# for every second of the window. The CG cell records about 5,700 a
+# second (seven an iteration); the buffer holds eight times that, which
+# covers the profiled slice after the window too, so ``trace.dropped``
+# stays unset.
+PROGRAM_SPANS_SETUP = 1 << 16
+PROGRAM_SPANS_PER_S = 50_000
 
 
 def read_json(path: str) -> dict:
@@ -147,6 +162,23 @@ def checks(run: Run, graphs: dict, limits: dict, device) -> Dict[str, dict]:
             "unanswered": {"value": run.failed, "limit": limits["unanswered"]}}
 
 
+@contextlib.contextmanager
+def program_tracing(on: bool, capacity: int):
+    """The program's tracer (``repro_torch.trace``), recording into a
+    buffer of ``capacity`` spans while in effect, where ``on``; else
+    None, and the tracer is left off."""
+    if not on:
+        yield None
+        return
+    from repro_torch import trace as tracer
+
+    tracer.enable(capacity)
+    try:
+        yield tracer
+    finally:
+        tracer.disable()
+
+
 def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
              t_start: float) -> dict:
     """Run one cell and return its result line (a dict)."""
@@ -154,16 +186,21 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
 
     on_card = torch.device(device).type == "cuda"
     t_imported = time.perf_counter()
-    graphs = make_graphs(cell.config, seed)
+    graphs = make_graphs(cell.config, seed, cell.root)
     t_graphs = time.perf_counter()
-    sessions, plan_s, facts = plan(cell.config, graphs, device)
-    t_planned = time.perf_counter()
-    spans = tracing.Spans() if trace else None
-    ctx = Context(config=cell.config, traffic=cell.traffic, cell=cell.cell, seed=seed,
-                  seconds=seconds, device=device, graphs=graphs, sessions=sessions,
-                  t_start=t_start, spans=spans, profile=trace and on_card)
-    loop = loops.find(cell.traffic["loop"])
-    run = loop.run(ctx)
+    capacity = PROGRAM_SPANS_SETUP + int(seconds * PROGRAM_SPANS_PER_S)
+    with program_tracing(trace, capacity) as tracer:
+        sessions, plan_s, facts = plan(cell.config, graphs, device)
+        t_planned = time.perf_counter()
+        spans = tracing.Spans() if trace else None
+        ctx = Context(config=cell.config, traffic=cell.traffic, cell=cell.cell, seed=seed,
+                      seconds=seconds, device=device, graphs=graphs, sessions=sessions,
+                      t_start=t_start, spans=spans, profile=trace and on_card)
+        loop = loops.find(cell.traffic["loop"])
+        run = loop.run(ctx)
+    if tracer is not None:
+        spans.extend((name, t0, t1) for name, t0, t1, *_ in tracer.spans())
+        run.program_counters = tracer.counters()
     run.plan_s, run.facts, run.traffic, run.spans = plan_s, facts, cell.traffic, spans
     run.device_trace = run.profiler.read() if run.profiler else None
     # Set-up by part, for the record (standard error; not a metric).

@@ -42,6 +42,9 @@ class Run:
     profiler: Optional[tracing.Profiler] = None  # its slice, read after the window
     spans: Optional[tracing.Spans] = None
     device_trace: Optional[tracing.DeviceTrace] = None  # set by the harness
+    # Set by the harness in a traced run: the program's ``trace.counters()``
+    # (None where its tracer was off or absent).
+    program_counters: Optional[Dict[str, int]] = None
     # Set by the harness: seconds in ``distribute``, each graph's plan
     # facts (:func:`portbench.harness.plan_facts`), the traffic file.
     plan_s: float = 0.0

@@ -7,6 +7,9 @@ import numpy as np
 
 from portbench.matrices import Matrix
 
+# A CPU test's grid: 210 rows, every kind of boundary row.
+TINY = {"nx": 6, "ny": 7, "nz": 5}
+
 
 def stencil27(nx: int, ny: int, nz: int) -> Matrix:
     n = nx * ny * nz

@@ -1,0 +1,9 @@
+"""The exchange's device time a product: the operations launched inside
+the program's ``spmv.exchange`` spans (owned blocks, send buffer, the
+workspace's gathers), ``bell_spmm`` left out, per ``spmv.call``, in the
+traced slice."""
+from portbench.phases import per_call_ms
+
+
+def read(run):
+    return per_call_ms(run, "spmv.exchange")

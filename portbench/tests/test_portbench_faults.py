@@ -9,7 +9,7 @@ import repro_torch.pmvc.dist as dist_mod
 import repro_torch.api.solvers as solvers_mod
 from repro_torch.api.session import SparseSession
 
-from portbench.tests.pb_tiny import WORKLOADS, run
+from portbench.tests.pb_tiny import fault_cases, run
 
 
 def _operator_fault(monkeypatch, broken):
@@ -60,9 +60,7 @@ def answer_altered(monkeypatch):
 
 FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch,
           "no_exchange": no_exchange, "answer_altered": answer_altered}
-# A batch of one has no half to leave out.
-CASES = [(w, f) for w in WORKLOADS for f in FAULTS
-         if not (f == "half_batch" and w == "hpcg64-cg-b1")]
+CASES = fault_cases(FAULTS)
 
 
 @pytest.mark.parametrize("workload,fault", CASES)

@@ -8,7 +8,7 @@ import pytest
 
 from portbench import loops, reference
 from portbench.harness import HERE
-from portbench.traffic import Reservoir, payloads
+from portbench.traffic import PAYLOADS, Reservoir, payloads
 
 
 def test_payloads():
@@ -20,6 +20,15 @@ def test_payloads():
         payloads({"payload": "bursty"}, 10, 1, 1, 0, salt=0)
 
 
+def test_uniform_payloads():
+    """PageRank's classic teleport: every row 1/n, the same for every seed."""
+    a = payloads({"payload": "uniform"}, 1000, 3, 2, 2**31 + 1, salt=0)
+    assert a.shape == (3, 2, 1000) and a.dtype == np.float32
+    assert np.all(a == np.float32(1.0 / 1000))
+    assert np.allclose(a.sum(axis=-1, dtype=np.float64), 1.0, rtol=1e-6)
+    assert np.array_equal(a, payloads({"payload": "uniform"}, 1000, 3, 2, 7, salt=5))
+
+
 def test_every_traffic_file_names_its_loop_and_solver():
     folder = os.path.join(HERE, "traffic")
     for name in os.listdir(folder):
@@ -27,7 +36,7 @@ def test_every_traffic_file_names_its_loop_and_solver():
         assert callable(loops.find(tr["loop"]).run)
         assert os.path.exists(os.path.join(os.path.dirname(reference.__file__),
                                            f"{tr['solver']}.py"))
-        assert tr["payload"] == "normal" and tr["batch"] >= 1 and tr["iters"] >= 1
+        assert tr["payload"] in PAYLOADS and tr["batch"] >= 1 and tr["iters"] >= 1
 
 
 def test_reservoir_keeps_a_seeded_sample():

@@ -2,11 +2,13 @@
 and the reading of the profiler's device trace.
 
 Spans are host-clock intervals (``time.perf_counter_ns``) named after
-the call they time (``solve``, ``spmv``). They are recorded
-only in a ``--trace 1`` run, from any thread, and kept in memory. The
-device trace comes from ``torch.profiler`` (CUDA activity) over the
-first :data:`SLICE_S` seconds of the window; its timestamps are put on
-the spans' clock by a ``cudaDeviceSynchronize`` made at a known time.
+the call they time (``solve``, ``spmv``), with the program's own
+(dotted names: ``cg.iter``, ``spmv.exchange``, ...) copied in after the
+loop. They are recorded only in a ``--trace 1`` run, from any thread,
+and kept in memory. The device trace comes from ``torch.profiler``
+(CUDA activity) over a slice of :data:`SLICE_S` seconds of the same
+traffic right after the window; its timestamps are put on the spans'
+clock by a ``cudaDeviceSynchronize`` made at a known time.
 """
 from __future__ import annotations
 
@@ -38,6 +40,11 @@ class Spans:
     def add(self, name: str, t0: int, t1: int) -> None:
         with self._lock:
             self.items.append((name, t0, t1))
+
+    def extend(self, items) -> None:
+        """Add ``(name, t0, t1)`` items, such as the program's spans."""
+        with self._lock:
+            self.items.extend(items)
 
     def of(self, name: str, lo: int = 0, hi: int = 2**63) -> List[Tuple[int, int]]:
         return [(a, b) for n, a, b in self.items if n == name and a >= lo and a < hi]
@@ -151,7 +158,7 @@ class DeviceTrace:
 
 
 class Profiler:
-    """``torch.profiler`` over one slice of the window, CUDA activity only."""
+    """``torch.profiler`` over one slice of solves, CUDA activity only."""
 
     def __init__(self, spans: Spans):
         self.spans = spans
