@@ -8,7 +8,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. **card** — the device's name and count, and ``nvidia-smi``'s name and
    power limit;
 2. **build** — the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (``bell_spmm``, ``gmm``, ``flash_attention``), all ``nvcc`` processes
+   (``bell_spmm``, ``gmm``, ``flash_attention``, ``cg_update``), all ``nvcc`` processes
    started together, with ``-Xptxas -v``'s registers and spills, each
    line after the name of its kernel;
 3. **kernel** — every kernel against its plain PyTorch version on the
@@ -36,7 +36,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``reference`` executor; each kernel's launch counter, set to 0 just
    before a path runs, must have risen on it, only on variants that
    ``spmm_variant`` names for its tiles (``ring`` at B up to 3, ``stream``
-   past it);
+   past it), and the device-loop CG must have run the fused update
+   (``cg_update``) once an iteration;
 5. **serve** — the serving path on the main path's sessions (nothing
    re-planned), for each exchange: one ``SparseServeEngine``
    (``batch_slots`` 8, 20 iterations, ``A`` as ``a`` and the SPD matrix
@@ -203,7 +204,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    are bitwise equal), every exchange's spmv at each B inside the train
    step's ``deterministic()`` block bitwise the same spmv outside it, and
    — a measurement, not a check — whether column j of the replicated
-   spmv at B = 64 is bitwise the B = 1 spmv.
+   spmv at B = 64 is bitwise the B = 1 spmv; last CG's fused update
+   (``cg_update``) beside its plain version on the stencil's device loop
+   at B = 1: one call within 1e-6 of the plain update and two calls
+   bitwise equal, 50-iteration solves of both within 1e-6, and per
+   iteration the host's wall time and, by the profiler, the device time
+   of ``bell_spmm``, of the update and of the rest, and the operations.
 
 Then one JSON line with the kernels' numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. With no CUDA device the
@@ -487,7 +493,7 @@ def phase_build() -> None:
     from repro_torch.kernels.build import build
 
     t0 = time.perf_counter()
-    libs = build(["bell_spmm", "gmm", "flash_attention"])
+    libs = build(["bell_spmm", "gmm", "flash_attention", "cg_update"])
     log(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
     for lib in libs.values():
         log(f"[build] {lib.name}: nvcc {lib.seconds:.2f} s -> {os.path.basename(lib.path)}")
@@ -741,6 +747,7 @@ def check_main_variants(by_variant: dict, launches: int, what: str) -> None:
 def phase_main_path(device) -> dict:
     from repro_torch.api import Topology, distribute
     from repro_torch.kernels.spmv import bell_spmm
+    from repro_torch.kernels.spmv.cg_update import cg_update
     from repro_torch.sparse.generate import banded_coo
 
     cfg = SCALE_CONFIG
@@ -794,9 +801,13 @@ def phase_main_path(device) -> dict:
             log(f"[main] {ex}: spmv B={b} rel err vs reference {err:.3e}")
         run_solves(sess, ref_solves, seeds)
         for device_loop in (False, True):
+            fused_before = cg_update.launches
             res = spd_sess.solve("cg", iters=30, b=b_cg, device_loop=device_loop)
             check(np.isfinite(res.x).all() and res.iters_run == cg_ref.iters_run,
                   f"{ex}: cg device_loop={device_loop} iters or finiteness")
+            fused = cg_update.launches - fused_before
+            check(fused == (res.iters_run if device_loop else 0),
+                  f"{ex}: cg device_loop={device_loop} ran the fused update {fused} times")
             err = rel_err(res.x, cg_ref.x)
             check(err < 1e-4, f"{ex}: cg device_loop={device_loop} x off by {err:.2e}")
         torch.cuda.synchronize()
@@ -2916,6 +2927,103 @@ def ring_stream_times(label: str, bt, ncb: int, batches, where: str) -> None:
             f"({bound_by}, {bytes_moved / 1e6:.1f} MB) [{where}]")
 
 
+def cg_update_times(sess, label: str, where: str) -> None:
+    """CG's fused update beside its plain version on one session's device
+    loop at B = 1: one call on the loop's first state within 1e-6 of the
+    plain update (rs within 1e-12) and two calls bitwise equal; 50-iteration
+    solves of both loops within 1e-6 of each other. Per iteration, from the
+    difference between solves of 50 and of 10 iterations: the host's wall
+    time (untraced, in turns), and by the profiler the device time of
+    ``bell_spmm``, of the update (the three kernels; for the plain loop its
+    other device time less the fused loop's) and of the rest of the spmv,
+    and the device operations. The plain loop runs in the fused one's place
+    in ``repro_torch.api.solvers`` for the measurement."""
+    import repro_torch.api.solvers as solvers
+    from repro_torch.kernels.spmv.cg_update import cg_buffers, cg_update, cg_update_plain
+    from torch.profiler import ProfilerActivity, profile
+
+    mv = sess.device_spmm()
+    n = sess.device_plan.shape[0]
+    b = np.random.default_rng(3).standard_normal((1, n)).astype(np.float32)
+    bt = torch.as_tensor(b, device="cuda")
+    z = torch.zeros_like(bt)
+    r = bt - mv(z)
+    p = r.clone()
+    rs = (r.double() * r.double()).sum(dim=-1)
+    ap = mv(p)
+    want = cg_update_plain(z, r, p, ap, rs)
+    bufs = [cg_buffers(z.clone(), r.clone(), p.clone(), rs, 1) for _ in range(2)]
+    for buf in bufs:
+        cg_update(buf, ap, 1)
+    for i, name in enumerate(("z", "r", "p")):
+        got = getattr(bufs[0], name)
+        check(torch.equal(got, getattr(bufs[1], name)),
+              f"[times] cg_update on {label}: two calls differ in {name}")
+        err = scaled_err(got, want[i])
+        check(err <= 1e-6, f"[times] cg_update on {label}: {name} off the plain update by "
+              f"{err:.2e}")
+    rs_err = abs(float(bufs[0].rs[1, 0]) / float(want[3][0]) - 1.0)
+    check(rs_err <= 1e-12, f"[times] cg_update on {label}: rs off by {rs_err:.2e}")
+    fused_loop = solvers._cg_loop_fused
+
+    def solve(fused: bool, iters: int):
+        solvers._cg_loop_fused = fused_loop if fused else solvers._cg_loop_plain
+        try:
+            return sess.solve("cg", b=b, iters=iters, tol=0.0, device_loop=True)
+        finally:
+            solvers._cg_loop_fused = fused_loop
+
+    x = {fused: solve(fused, 50).x for fused in (True, False)}
+    x_err = rel_err(x[True], x[False])
+    check(x_err < 1e-6, f"[times] cg on {label}: fused x off the plain loop's by {x_err:.2e}")
+    walls = {}
+    for fused in (True, False, False, True, True, False):
+        for iters in (10, 50):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve(fused, iters)
+            walls.setdefault((fused, iters), []).append(time.perf_counter() - t0)
+    wall_ms = {f: (min(walls[f, 50]) - min(walls[f, 10])) / 40 * 1e3 for f in (True, False)}
+    fused_names = ("cg_dot_kernel", "cg_zr_kernel", "cg_p_kernel")
+    per = {}
+    for fused in (True, False):
+        sums = {}
+        for iters in (10, 50):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                solve(fused, iters)
+                torch.cuda.synchronize()
+            by = dict.fromkeys(("bell_spmm", "update", "rest", "ops"), 0.0)
+            for e in prof.events():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                key = ("bell_spmm" if "bell_spmm" in e.name else
+                       "update" if any(k in e.name for k in fused_names) else "rest")
+                by[key] += e.time_range.elapsed_us() / 1e3
+                by["ops"] += 1
+            sums[iters] = by
+        per[fused] = {k: (sums[50][k] - sums[10][k]) / 40 for k in sums[50]}
+    f, pl = per[True], per[False]
+    plain_update = pl["rest"] - f["rest"]
+    bound_ms = 11 * 4 * n / PEAK_BYTES_PER_S * 1e3  # 11 float32 vectors read or written
+    if f["ops"] > 0:
+        log(f"[times] cg_update on {label} B=1, per iteration: fused loop bell_spmm "
+            f"{f['bell_spmm']:.4f} ms, update {f['update']:.4f} ms (3 kernels; bound "
+            f"{bound_ms:.4f} ms by bytes), rest {f['rest']:.4f} ms, device "
+            f"{f['bell_spmm'] + f['update'] + f['rest']:.4f} ms in {f['ops']:.2f} ops; plain "
+            f"loop bell_spmm {pl['bell_spmm']:.4f} ms, update {plain_update:.4f} ms (its "
+            f"operations less the fused loop's rest), device "
+            f"{pl['bell_spmm'] + pl['update'] + pl['rest']:.4f} ms in {pl['ops']:.2f} ops "
+            f"[{where}]")
+    else:
+        log(f"[times] cg_update on {label}: device times not measured (no device events in "
+            f"the profiler's trace) [{where}]")
+    log(f"[times] cg on {label} B=1, per iteration: host wall {wall_ms[True]:.4f} ms fused, "
+        f"{wall_ms[False]:.4f} ms plain (untraced, in turns); fused x within {x_err:.2e} of "
+        f"the plain loop's, one call within 1e-6, rs within {rs_err:.2e}, two calls bitwise "
+        f"[{where}]")
+
+
 def phase_times(main: dict, card: dict, device) -> list:
     from repro_torch.api import Topology, distribute
     from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles, spmm_variant
@@ -3062,7 +3170,9 @@ def phase_times(main: dict, card: dict, device) -> list:
     sbt16 = bell_tiles(hoist_tiles(sdp.tiles, device=device).to(torch.float16), sdp.tile_row,
                        sdp.tile_col, sdp.real_tiles, sdp.num_row_blocks)
     ring_stream_times(f"stencil {STENCIL_N}^3", sbt16, sdp.num_col_blocks, (1,), where)
-    del sbt16, stencil, sdp
+    del sbt16
+    cg_update_times(stencil, f"stencil {STENCIL_N}^3", where)
+    del stencil, sdp
     torch.cuda.empty_cache()
     # A measurement for the serving path, not a check: is the whole spmv,
     # unit sum included, column-stable in B on CUDA?

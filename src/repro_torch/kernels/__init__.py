@@ -10,6 +10,10 @@ version beside it, which the wrapper runs for CPU tensors only.
 * ``attn`` — causal / sliding-window flash attention, replacing
   ``repro/kernels/attn/kernel.py::flash_attention``
   (``csrc/flash_attention.cu``).
+
+One kernel replaces no Pallas kernel: CG's vector update after the
+product, fused for the device loop (``spmv/cg_update.py``,
+``csrc/cg_update.cu``; the JAX package runs CG on the host).
 """
 from repro_torch.kernels.attn.ops import flash_attention, mha
 from repro_torch.kernels.attn.ref import attention_plain

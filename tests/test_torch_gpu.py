@@ -40,6 +40,8 @@ from repro_torch.analysis import (
     schedule_signature,
     trace_pmvc_step,
 )
+import repro_torch.api.solvers as solvers
+from repro_torch import trace
 from repro_torch.api.exchange import resolve_exchange
 from repro_torch.config import get_arch
 from repro_torch.core.nezgt import nezgt_partition
@@ -69,6 +71,7 @@ from repro_torch.serve import Request, ServeEngine, SparseServeEngine, Status, g
 from repro_torch.sparse.bell import pack_bell, tile_counts
 from repro_torch.sparse.formats import COO
 from repro_torch.sparse.generate import banded_coo, random_coo
+from repro_torch.kernels.spmv.cg_update import cg_buffers, cg_update, cg_update_plain
 from repro_torch.kernels.spmv.ops import RING_MAX_BATCH
 
 pytestmark = pytest.mark.gpu
@@ -302,6 +305,98 @@ def test_ring_refuses_misaligned_sources(cuda):
     x = flat[1:].view(3, nsrc, 16, 1)  # 4 bytes past a 16-byte boundary
     with pytest.raises(ValueError, match="ring kernel copies 16-byte"):
         bell_spmm(bt, x)
+
+
+@pytest.fixture(scope="module")
+def stencil_sessions():
+    """HPCG's stencil at 16^3 and 32^3 on the card, as the benchmark plans
+    64^3 (NL-HC on 16 units, selective, 16 x 16 tiles)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return {n: distribute(_stencil27(n), topology=Topology(4, 4), combo="NL-HC", block=16,
+                          exchange="selective") for n in (16, 32)}
+
+
+def _cg_plain_on_the_card(monkeypatch, sess, **kw):
+    """The device loop with the plain update in place of the fused one, on
+    the same session."""
+    with monkeypatch.context() as m:
+        m.setattr(solvers, "_cg_loop_fused", solvers._cg_loop_plain)
+        return sess.solve("cg", device_loop=True, **kw)
+
+
+def _cg_fused_traced(sess, **kw):
+    """A device-loop solve with the tracer on, and its ``cg.fused_iters``."""
+    trace.enable()
+    try:
+        res = sess.solve("cg", device_loop=True, **kw)
+    finally:
+        trace.disable()
+    return res, trace.counters().get("cg.fused_iters", 0)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 8])
+@pytest.mark.parametrize("n", [16, 32])
+def test_fused_cg_update_matches_the_plain_update(cuda, stencil_sessions, monkeypatch, n,
+                                                  batch):
+    """50 iterations of the device loop, fused against plain on one
+    session: x within 1e-6 and the residuals within 1e-9 (only the two
+    dots' summation order differs), two fused solves bitwise equal, every
+    iteration fused; and a batch with an all-zero row, which stays 0."""
+    sess = stencil_sessions[n]
+    b = np.random.default_rng(n + batch).standard_normal((batch, n**3)).astype(np.float32)
+    before = cg_update.launches
+    fused, counted = _cg_fused_traced(sess, b=b, iters=50, tol=0.0)
+    assert fused.iters_run == 50 and counted == 50
+    assert cg_update.launches - before == 50
+    again = sess.solve("cg", b=b, iters=50, tol=0.0, device_loop=True)
+    assert np.array_equal(fused.x, again.x) and fused.residuals == again.residuals
+    plain = _cg_plain_on_the_card(monkeypatch, sess, b=b, iters=50, tol=0.0)
+    assert np.abs(fused.x - plain.x).max() / np.abs(plain.x).max() < 1e-6
+    np.testing.assert_allclose(fused.residuals, plain.residuals, rtol=1e-9, atol=0)
+    b[batch // 2] = 0.0
+    fused = sess.solve("cg", b=b, iters=50, tol=0.0, device_loop=True)
+    plain = _cg_plain_on_the_card(monkeypatch, sess, b=b, iters=50, tol=0.0)
+    assert not fused.x[batch // 2].any()
+    assert np.abs(fused.x - plain.x).max() / np.abs(plain.x).max(initial=1e-30) < 1e-6
+    np.testing.assert_allclose(fused.residuals, plain.residuals, rtol=1e-9, atol=0)
+
+
+def test_fused_cg_keeps_the_single_vector_bookkeeping(cuda, stencil_sessions, monkeypatch):
+    """``b=[N]``: a zero right-hand side breaks down after one (fused)
+    iteration with the residuals ``[0.0]``; a ``tol`` stop ends where the
+    plain update's does."""
+    sess = stencil_sessions[16]
+    zero, counted = _cg_fused_traced(sess, b=np.zeros(16**3, np.float32), iters=30)
+    assert zero.iters_run == 1 and not zero.converged and counted == 1
+    assert zero.residuals == [0.0] and not zero.x.any()
+    b = np.random.default_rng(1).standard_normal(16**3).astype(np.float32)
+    fused, counted = _cg_fused_traced(sess, b=b, iters=200, tol=1e-3)
+    plain = _cg_plain_on_the_card(monkeypatch, sess, b=b, iters=200, tol=1e-3)
+    assert fused.converged and fused.iters_run == plain.iters_run < 200
+    assert counted == fused.iters_run
+    assert len(fused.residuals) == fused.iters_run + 1
+    np.testing.assert_allclose(fused.residuals, plain.residuals, rtol=1e-9, atol=0)
+
+
+def test_fused_cg_update_is_the_plain_update_at_one_iteration(cuda):
+    """One call on random state against the plain update (the zero row
+    frozen), with ``ap`` in the spmv's transposed layout."""
+    rng = np.random.default_rng(2)
+    z, r, p = (torch.as_tensor(rng.standard_normal((3, 5000)).astype(np.float32), device=cuda)
+               for _ in range(3))
+    ap = torch.as_tensor(rng.standard_normal((5000, 3)).astype(np.float32), device=cuda).T
+    p[1] = 0.0
+    rs = (r.double() ** 2).sum(-1)
+    want = cg_update_plain(z, r, p, ap, rs)
+    buf = cg_buffers(z.clone(), r.clone(), p.clone(), rs, 1)
+    cg_update(buf, ap, 1)
+    assert buf.ok.tolist() == [1, 0, 1]
+    for got, exp in zip((buf.z, buf.r, buf.p), want[:3]):
+        assert torch.equal(got[1], exp[1])
+        assert float((got - exp).abs().max() / exp.abs().max()) < 1e-6
+    torch.testing.assert_close(buf.rs[1], want[3], rtol=1e-12, atol=0)
+    assert float(buf.resid[0]) == pytest.approx(float(want[3].sqrt().max()), rel=1e-12)
 
 
 def test_kernel_refuses_tiles_past_simt_shared_memory(cuda):
