@@ -11,25 +11,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (``bell_spmm``, ``gmm``, ``flash_attention``, ``cg_update``), all ``nvcc`` processes
    started together, with ``-Xptxas -v``'s registers and spills, each
    line after the name of its kernel;
-3. **kernel** — every kernel against its plain PyTorch version on the
-   card over a sweep of shapes and types, two launches bitwise equal:
-   ``bell_spmm`` over tile shapes (up to 32 × 32 on its ``ring`` and
-   ``stream`` variants, larger on ``simt``, and shapes off that grid —
-   24 × 16 on ``ring`` and ``stream``, 16 × 24 and 12 × 12 on ``simt``)
-   and batch widths (each launch on the variant ``spmm_variant`` names,
-   column j of every B bitwise the B = 1 launch on column j, a ``ring``
-   or ``stream`` result bitwise the ``simt`` kernel's and a ``ring``
-   result bitwise the ``stream`` kernel's on the same inputs), ``gmm`` over the
-   reference tests' shapes and shapes that reach its ``wgmma`` and
-   ``regblock`` variants × {f32, bf16} in × {f32, bf16} out,
-   ``flash_attention`` over the reference tests' masks and tiles × D in
-   {16, 80} × {f32, bf16}, D in {64, 128} at 128 × 128 tiles, T ≠ S
-   cases (rows that see no key, on every variant), a shape of the
-   ``simt`` variant in each type and shapes of the bf16 ``wgmma``
-   variant (every D from 16 to 128 by 16, bkv = 16 under its 128-key
-   chunk, bq = 256), held against the plain version with the kernel's
-   tiles; every variant of each kernel must have run;
-4. **main path** — ``distribute`` → ``spmv`` → ``solve`` at the repo's
+3. **main path** — ``distribute`` → ``spmv`` → ``solve`` at the repo's
    headline scale config (banded 60,000 × 60,000 with 1.2 M non-zeros,
    ``Topology(4, 4)``, ``NL-HC``, block 16, seed 0) for the replicated,
    selective and ``overlap:2`` exchanges, held against the float64 CSR
@@ -37,8 +19,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    before a path runs, must have risen on it, only on variants that
    ``spmm_variant`` names for its tiles (``ring`` at B up to 3, ``stream``
    past it), and the device-loop CG must have run the fused update
-   (``cg_update``) once an iteration;
-5. **serve** — the serving path on the main path's sessions (nothing
+   (``cg_update``) once an iteration, one call within 1e-6 of
+   ``cg_update_plain`` on the loop's first state and two calls bitwise,
+   and its solve within 1e-6 of the same loop with the plain update
+   (residuals within 1e-9);
+4. **serve** — the serving path on the main path's sessions (nothing
    re-planned), for each exchange: one ``SparseServeEngine``
    (``batch_slots`` 8, 20 iterations, ``A`` as ``a`` and the SPD matrix
    as ``spd``) serves 64 requests from 4 tenants, made from ``--seed``
@@ -53,7 +38,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    time by solver, the device time (CUDA events around each lane step's
    spmv), the device's idle share, requests per second against the 64
    direct solves in sequence, latency, and peak device memory;
-6. **plans** — the plan store, ``update`` and the linter on the main
+5. **plans** — the plan store, ``update`` and the linter on the main
    path's sessions (nothing planned twice, a ``TemporaryDirectory`` for
    the archives): each exchange saved (v2) and loaded lazily on the card,
    its first spmv timed beside its planning time in ``[main]`` and its
@@ -74,7 +59,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``verify("full")`` on a patched one and ``python -m
    repro_torch.analysis`` over the directory, each without a finding.
    Every ``bell_spmm`` launch of the phase must be ``ring`` or ``stream``;
-7. **faults** — the fault-tolerance runtime on the replicated and
+6. **faults** — the fault-tolerance runtime on the replicated and
    selective sessions (overlap:2's update replans, at every replay): per
    exchange an engine under a ``recovery_dir`` in a temporary directory
    checkpoints both graphs, journals one ``update_graph`` of the
@@ -91,7 +76,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``checkpoint_graph`` seconds, requests/s with and without the fault
    and the device memory allocated after recovery. Every ``bell_spmm``
    launch must be ``ring`` or ``stream``;
-8. **dist** — the ``shard_map`` executor on an NCCL process group of one
+7. **dist** — the ``shard_map`` executor on an NCCL process group of one
    rank (a file store in a temporary directory), all 16 units stacked on
    it, on the three sessions at B = 1 / 8 / 64: within 1e-5 of the
    float64 oracle, its difference from ``simulate`` and whether it is
@@ -100,7 +85,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``bell_spmm`` launch ``ring`` or ``stream``, and the device time by CUDA events
    beside ``simulate``'s. The cross-card traffic of 4 ranks stays
    unverified on one card;
-9. **lm kernels** — the other two kernels on their own entry points at
+8. **lm kernels** — the other two kernels on their own entry points at
    the full width of the repo's language-model configs: the MoE expert
    FFN of granite-moe-1b-a400m (``plan_groups`` → gather → three
    ``grouped_matmul`` calls, bf16 and f32), its causal prefill
@@ -111,7 +96,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    so must the per-variant counts of the ``wgmma`` variants (bf16) and
    of the register-blocked ones (f32), never those of ``simt`` (nor of
    ``mma`` for attention);
-10. **lm serve** — the language-model serving path (``repro_torch.models``,
+9. **lm serve** — the language-model serving path (``repro_torch.models``,
    ``repro_torch.serve.engine``), which calls no kernel of the port (the
    three launch counters, set to 0 at its start, must stay 0): each
    family at ``.reduced()`` size in float32 (qwen3-1.7b, h2o-danube-1.8b
@@ -142,7 +127,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    generated tokens/s printed); and the LM ``ServeEngine``, whose
    tokens-only wave must raise the reference's
    ``KeyError('frontend_embeds')`` on this family;
-11. **lm train** — the training path (``repro_torch.optim``,
+10. **lm train** — the training path (``repro_torch.optim``,
    ``repro_torch.train``, ``repro_torch.checkpoint``, the MoE family),
    which calls no kernel of the port (the three launch counters, set to 0
    at its start, must stay 0): one train step of each family at
@@ -169,7 +154,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    last a checkpoint of qwen3-1.7b at full width cut to 2 layers (about
    4.9 GB of npz): a blocking save, a restore (bitwise), an async save
    and the stall it puts on the next step;
-12. **launch** — the launch layer (``repro_torch.launch``,
+11. **launch** — the launch layer (``repro_torch.launch``,
    ``repro_torch.roofline``), which calls no kernel of the port (the three
    launch counters, set to 0 at its start, must stay 0): on a one-rank
    NCCL ``(data, model) = (1, 1)`` mesh (a file store), qwen3-1.7b and
@@ -188,32 +173,30 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    process of its own with its own time limit, its terms on the card's
    constants; and ``step_costs`` of ``[lm train]``'s bf16 qwen3 step, its
    compute and memory terms beside the step time ``[lm train]`` measured;
-13. **times** — each kernel's time per launch at its path's shapes
+12. **times** — each kernel's time per launch at its path's shapes
    (CUDA events), its bound, its plain version's time, one PyTorch
    library call computing the same function, the earlier variants' times
    at the same shapes (the kernels of the previous slices, compared within
    the run: ``stream`` and ``simt`` for ``bell_spmm``, ``simt`` and for
    bf16 attention ``mma``); ``ring`` beside ``stream`` at B = 1, 2, 3
-   (``ring``'s widths), and ``stream`` at 4, 8 and 64, on the banded plan and on HPCG's
-   27-point stencil at 64³ under NL-HC (planned here), each time with its
-   bound and share and the two bitwise equal, and on their float16 tiles
-   at B = 1 (and 8 on the banded plan); the spmv wall
+   (``ring``'s widths), and ``stream`` at 4, 8 and 64, on the banded plan,
+   each time with its bound and share and the two bitwise equal, and on
+   its float16 tiles at B = 1 and 8; the spmv wall
    time and peak device memory per exchange, the
    shares of the replicated spmv's device time taken by the kernel and by
    the unit sum (beside the ``cumsum`` it replaced, and whether the two
    are bitwise equal), every exchange's spmv at each B inside the train
    step's ``deterministic()`` block bitwise the same spmv outside it, and
    — a measurement, not a check — whether column j of the replicated
-   spmv at B = 64 is bitwise the B = 1 spmv; last CG's fused update
-   (``cg_update``) beside its plain version on the stencil's device loop
-   at B = 1: one call within 1e-6 of the plain update and two calls
-   bitwise equal, 50-iteration solves of both within 1e-6, and per
-   iteration the host's wall time and, by the profiler, the device time
-   of ``bell_spmm``, of the update and of the rest, and the operations.
+   spmv at B = 64 is bitwise the B = 1 spmv.
 
 Then one JSON line with the kernels' numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. With no CUDA device the
 script exits non-zero before printing any result.
+
+Each kernel against its plain version over a sweep of shapes and types
+is ``tests/test_torch_gpu.py``'s, and the benchmark's CG problem (HPCG's
+27-point stencil at 64³) is ``portbench/run.py``'s ``hpcg64-cg-b1``.
 """
 from __future__ import annotations
 
@@ -239,13 +222,10 @@ SCALE_CONFIG = {"n": 60_000, "nnz": 1_200_000, "topology": (4, 4),
                 "combo": "NL-HC", "block": 16, "seed": 0}
 EXCHANGES = ("replicated", "selective", "overlap:2")
 SPMV_BATCHES = (1, 8, 64)
-# [times]'s ring-beside-stream widths, and its stencil grid: the benchmark's
-# HPCG problem (27 points, 64^3, NL-HC on Topology(4, 4), block 16).
+# [times]'s ring-beside-stream widths.
 RING_TIME_BATCHES = (1, 2, 3, 4, 8, 64)
-STENCIL_N = 64
-# Tolerances are relative to the result's scale: max |y - y_ref| / max |y_ref|.
+# Tolerance relative to the result's scale: max |y - y_ref| / max |y_ref|.
 TOL_F32 = 1e-5  # kernel vs plain, and spmv vs the float64 CSR oracle
-TOL_F16 = 2e-2  # float16 tiles and x, float32 accumulation
 # Published peaks of one H100 SXM (NVIDIA data sheet, at 700 W): HBM
 # bytes/s, float32 FLOP/s outside the tensor cores, and dense bf16 FLOP/s
 # on the tensor cores — repro_torch.roofline.hw's, the one copy of them.
@@ -253,42 +233,10 @@ from repro_torch.roofline.hw import HBM_BW as PEAK_BYTES_PER_S  # noqa: E402
 from repro_torch.roofline.hw import PEAK_FLOPS_BF16 as PEAK_BF16_FLOPS  # noqa: E402
 from repro_torch.roofline.hw import PEAK_FLOPS_F32 as PEAK_F32_FLOPS  # noqa: E402
 from repro_torch.roofline.hw import LINK_BW  # noqa: E402
-# Tile shapes of the stream variant (bm, bn <= 32), then of simt, from
-# kernels/spmv/ops.py's BLOCK_SIZES; then shapes off that grid, at fewer
-# batch widths: (24, 16) on stream, the others on simt.
-KERNEL_SWEEP = ((8, 8), (8, 16), (16, 16), (32, 32), (8, 128), (128, 128))
-SWEEP_BATCHES = (1, 3, 8, 64)
-OFF_GRID_SWEEP = ((24, 16), (16, 24), (12, 12))
-OFF_GRID_BATCHES = (1, 8)
 # The reference tests' tolerances, as rtol and atol: tests/test_kernels_gmm.py
 # and tests/test_kernels_attn.py.
 GMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 8e-2}
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
-# (e, k, n, bm, bk, bn) of tests/test_kernels_gmm.py:9-13.
-# (e, k, n, bm, bk, bn) of tests/test_kernels_gmm.py:9-13 (the simt variant),
-# then shapes of the wgmma and regblock variants: N not a multiple of 256,
-# 64-row blocks with a ragged N, the granite widths, K not a multiple of 64.
-GMM_SWEEP = ((4, 32, 64, 8, 16, 32), (8, 64, 128, 16, 32, 64), (2, 16, 16, 8, 8, 8),
-             (8, 256, 384, 128, 128, 128), (4, 512, 192, 64, 64, 64),
-             (32, 1024, 512, 128, 128, 128), (4, 80, 256, 128, 16, 128))
-# (causal, window) and (s, bq, bkv) of tests/test_kernels_attn.py:19-22.
-ATTN_MASKS = ((True, 0), (False, 0), (True, 8), (True, 16), (True, 32))
-ATTN_TILES = ((64, 16, 16), (128, 32, 16), (64, 64, 64))
-# Further (causal, window, s, t, bq, bkv, d): D 64 and 128 at 128 × 128
-# tiles; T ≠ S; T < S with a window, so rows from T + window on see no key
-# (the plain version with the kernel's tiles is what the kernels compute
-# there); D 24, which both types run on the simt variant; T < S with rows
-# that see no key at 64 × 64 tiles, which float32 runs on regblock. Then
-# bf16 wgmma shapes: bkv = 16 and 32 under its 128-key chunk, bq = 256 (two
-# blocks a tile), 64-row blocks with a window, and the D it stages in two
-# 64-column boxes or in one box partly past D (16, 48, 96, 112).
-ATTN_EXTRA = ((True, 0, 256, 256, 128, 128, 64), (True, 32, 256, 256, 128, 128, 128),
-              (False, 0, 256, 256, 128, 128, 128), (True, 16, 64, 192, 32, 64, 80),
-              (True, 8, 128, 32, 32, 16, 80), (True, 8, 64, 64, 16, 16, 24),
-              (True, 8, 256, 64, 64, 64, 80), (True, 4, 256, 64, 128, 64, 64),
-              (True, 0, 256, 256, 64, 16, 128), (True, 32, 512, 512, 256, 128, 64),
-              (False, 0, 128, 256, 64, 32, 48), (True, 16, 256, 256, 128, 64, 112),
-              (True, 8, 256, 64, 128, 32, 96), (True, 0, 384, 384, 128, 64, 16))
 # The [plans] phase's deltas: 1 % of the main path's non-zeros given new
 # values, and half as many inserts within the band plus as many deletes.
 PLAN_VALUE_EDITS = 12_000
@@ -501,23 +449,7 @@ def phase_build() -> None:
             log(f"[build]   {ln}")
 
 
-# -- phase 3: kernel vs plain ------------------------------------------------
-
-
-def random_tile_set(rng, u_n, nrb, bm, bn, nsrc, t_max):
-    """A stacked tile set with ragged real counts, padding, rows in
-    ascending order within each unit and random x sources."""
-    counts = rng.integers(0, t_max + 1, size=u_n)
-    counts[0] = t_max  # at least one full unit
-    t = t_max + 2  # padding on every unit
-    tiles = np.zeros((u_n, t, bm, bn), np.float32)
-    rows = np.zeros((u_n, t), np.int32)
-    src = np.zeros((u_n, t), np.int32)
-    for u, c in enumerate(counts):
-        tiles[u, :c] = rng.standard_normal((c, bm, bn))
-        rows[u, :c] = np.sort(rng.integers(0, nrb, size=c))
-        src[u, :c] = rng.integers(0, nsrc, size=c)
-    return tiles, rows, src, counts
+# -- bell_spmm by its C entry points ----------------------------------------
 
 
 def spmm_launcher(variant: str, bt, xsrc) -> tuple:
@@ -557,132 +489,7 @@ def spmm_entry(variant: str, bt, xsrc) -> torch.Tensor:
     return out
 
 
-def phase_kernel(device) -> None:
-    from repro_torch.kernels.spmv import (
-        VARIANTS,
-        bell_spmm,
-        bell_spmm_plain,
-        bell_tiles,
-        spmm_variant,
-    )
-
-    rng = np.random.default_rng(0)
-    worst = 0.0
-    before = dict(bell_spmm.variant_launches)
-    sweep = [(bm, bn, SWEEP_BATCHES) for bm, bn in KERNEL_SWEEP]
-    sweep += [(bm, bn, OFF_GRID_BATCHES) for bm, bn in OFF_GRID_SWEEP]
-    for bm, bn, batches in sweep:
-        tiles, rows, src, counts = random_tile_set(rng, 4, 24, bm, bn, 30, 40)
-        for dtype, tol in ((torch.float32, TOL_F32), (torch.float16, TOL_F16)):
-            bt = bell_tiles(torch.as_tensor(tiles, device=device).to(dtype),
-                            rows, src, counts, 24)
-            for ux in (4, 1):  # per-unit sources, and one shared source
-                xs = {b: torch.as_tensor(rng.standard_normal((ux, 30, bn, b)).astype(
-                    np.float32), device=device).to(dtype) for b in batches}
-                for b, x in xs.items():
-                    variant = spmm_variant(dtype, bm, bn, b)
-                    ran = bell_spmm.variant_launches[variant]
-                    y = bell_spmm(bt, x)
-                    check(bell_spmm.variant_launches[variant] == ran + 1,
-                          f"bell_spmm ({bm},{bn}) B={b} {dtype} did not run on {variant}")
-                    y_plain = bell_spmm_plain(bt.tiles, bt.tile_row, bt.tile_src,
-                                              bt.counts, x, bt.nrb)
-                    torch.cuda.synchronize()
-                    err = scaled_err(y, y_plain)
-                    check(err <= tol, f"bell_spmm vs plain ({bm},{bn}) B={b} {dtype}: "
-                                      f"scaled err {err:.2e}")
-                    if dtype == torch.float32:
-                        worst = max(worst, err)
-                    check(torch.equal(y, bell_spmm(bt, x)),
-                          f"two launches differ ({bm},{bn}) B={b} {dtype}")
-                    # One FMA chain in every variant and patch: column j of
-                    # any B is bitwise the B = 1 launch, and stream is simt.
-                    for j in range(b):
-                        y1 = bell_spmm(bt, x[..., j:j + 1].contiguous())
-                        check(torch.equal(y[..., j:j + 1], y1),
-                              f"column {j} of B={b} is not the B=1 result ({bm},{bn}) {dtype}")
-                    if variant != "simt":
-                        check(torch.equal(y, spmm_entry("simt", bt, x)),
-                              f"{variant} and simt differ ({bm},{bn}) B={b} {dtype}")
-                    if variant == "ring":
-                        check(torch.equal(y, spmm_entry("stream", bt, x)),
-                              f"ring and stream differ ({bm},{bn}) B={b} {dtype}")
-        log(f"[kernel] bell_spmm ({bm},{bn}) B in {batches}, f32 + f16, "
-            f"{spmm_variant(torch.float32, bm, bn, 1)}: ok")
-    ran = {v: bell_spmm.variant_launches[v] - before[v] for v in VARIANTS}
-    check(all(ran.values()), f"bell_spmm sweep left a variant unlaunched: {ran}")
-    log(f"[kernel] bell_spmm worst f32 scaled |kernel - plain| = {worst:.3e}; "
-        f"launches by variant {ran}")
-
-
-def phase_kernel_gmm(device) -> None:
-    from repro_torch.kernels.gmm import VARIANTS, gmm_plain, grouped_matmul
-
-    rng = np.random.default_rng(0)
-    worst = 0.0
-    before = dict(grouped_matmul.variant_launches)
-    for e, k, n, bm, bk, bn in GMM_SWEEP:
-        m_tiles = 2 * e
-        x32 = torch.as_tensor(rng.standard_normal((m_tiles * bm, k)).astype(np.float32),
-                              device=device)
-        w32 = torch.as_tensor(rng.standard_normal((e, k, n)).astype(np.float32), device=device)
-        gid = torch.as_tensor(rng.integers(0, e, size=m_tiles).astype(np.int32), device=device)
-        for dtype in (torch.float32, torch.bfloat16):
-            x, w = x32.to(dtype), w32.to(dtype)
-            for out_dtype in (torch.float32, torch.bfloat16):
-                kw = {"bm": bm, "bk": bk, "bn": bn, "out_dtype": out_dtype}
-                y = grouped_matmul(x, w, gid, **kw)
-                y_plain = gmm_plain(x, w, gid, bm=bm, out_dtype=out_dtype)
-                torch.cuda.synchronize()
-                tol = max(GMM_TOL[dtype], GMM_TOL[out_dtype])
-                err, ok = allclose_err(y, y_plain, tol)
-                check(y.dtype == out_dtype and ok,
-                      f"gmm vs plain {(e, k, n, bm, bk, bn)} {dtype} -> {out_dtype}: "
-                      f"max abs err {err:.2e} (tol {tol})")
-                if dtype == out_dtype == torch.float32:
-                    worst = max(worst, err)
-                check(torch.equal(y, grouped_matmul(x, w, gid, **kw)),
-                      f"gmm: two launches differ {(e, k, n, bm, bk, bn)} {dtype} -> {out_dtype}")
-        log(f"[kernel] gmm (e,k,n,bm,bk,bn)={(e, k, n, bm, bk, bn)}, "
-            f"{{f32, bf16}} in x {{f32, bf16}} out: ok")
-    ran = {v: grouped_matmul.variant_launches[v] - before[v] for v in VARIANTS}
-    check(all(ran.values()), f"gmm sweep left a variant unlaunched: {ran}")
-    log(f"[kernel] gmm worst f32 max |kernel - plain| = {worst:.3e}; launches by variant {ran}")
-
-
-def phase_kernel_attn(device) -> None:
-    from repro_torch.kernels.attn import VARIANTS, attention_plain, flash_attention
-
-    rng = np.random.default_rng(0)
-    worst = 0.0
-    before = dict(flash_attention.variant_launches)
-    cases = [(causal, window, s, s, bq, bkv, d)
-             for causal, window in ATTN_MASKS for s, bq, bkv in ATTN_TILES for d in (16, 80)]
-    cases.extend(ATTN_EXTRA)
-    for causal, window, s, t, bq, bkv, d in cases:
-        q32, k32, v32 = (torch.as_tensor(rng.standard_normal((2, n, d)).astype(np.float32),
-                                         device=device) for n in (s, t, t))
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
-            kw = {"causal": causal, "window": window, "bq": bq, "bkv": bkv}
-            o = flash_attention(q, k, v, **kw)
-            o_plain = attention_plain(q, k, v, causal=causal, window=window, bq=bq, bkv=bkv)
-            torch.cuda.synchronize()
-            err, ok = allclose_err(o, o_plain, ATTN_TOL[dtype])
-            check(o.dtype == dtype and ok,
-                  f"flash_attention vs plain {kw} S={s} T={t} D={d} {dtype}: "
-                  f"max abs err {err:.2e}")
-            if dtype == torch.float32:
-                worst = max(worst, err)
-            check(torch.equal(o, flash_attention(q, k, v, **kw)),
-                  f"flash_attention: two launches differ {kw} S={s} T={t} D={d} {dtype}")
-    ran = {v: flash_attention.variant_launches[v] - before[v] for v in VARIANTS}
-    check(all(ran.values()), f"attention sweep left a variant unlaunched: {ran}")
-    log(f"[kernel] flash_attention {len(cases)} (mask, tiles, D) cases x {{f32, bf16}}: ok; "
-        f"worst f32 max |kernel - plain| = {worst:.3e}; launches by variant {ran}")
-
-
-# -- phase 4: main path ------------------------------------------------------
+# -- phase 3: main path ------------------------------------------------------
 
 
 def spd_from(a):
@@ -742,6 +549,49 @@ def check_main_variants(by_variant: dict, launches: int, what: str) -> None:
     check(launches > 0 and sum(by_variant[v] for v in named) == launches,
           f"{what} ran a bell_spmm variant that spmm_variant does not name for its tiles "
           f"({sorted(named)}): {by_variant}")
+
+
+def check_cg_update(sess, b: np.ndarray, fused, what: str, **kw) -> None:
+    """CG's fused update against its plain version on ``sess``'s device
+    loop: one call on the loop's first state within 1e-6 of the plain
+    update (rs within 1e-12) and two calls bitwise equal; the fused solve
+    ``fused`` (``b``, ``**kw``) within 1e-6 of the solve with the plain
+    update in its place in ``repro_torch.api.solvers``, the residuals
+    within 1e-9."""
+    import repro_torch.api.solvers as solvers
+    from repro_torch.kernels.spmv.cg_update import cg_buffers, cg_update, cg_update_plain
+
+    mv = sess.device_spmm()
+    bt = torch.as_tensor(b, device=sess.device)
+    z = torch.zeros_like(bt)
+    r = bt - mv(z)
+    rs = (r.double() * r.double()).sum(dim=-1)
+    ap = mv(r)
+    want, got, again = (cg_buffers(z.clone(), r.clone(), r.clone(), rs, 1) for _ in range(3))
+    cg_update_plain(want, ap, 1)
+    cg_update(got, ap, 1)
+    cg_update(again, ap, 1)
+    call_err = 0.0
+    for name in ("z", "r", "p"):
+        check(torch.equal(getattr(got, name), getattr(again, name)),
+              f"{what}: two cg_update calls differ in {name}")
+        err = scaled_err(getattr(got, name), getattr(want, name))
+        check(err <= 1e-6, f"{what}: cg_update's {name} off the plain update by {err:.2e}")
+        call_err = max(call_err, err)
+    rs_err = float((got.rs[1] / want.rs[1] - 1.0).abs().max())
+    check(rs_err <= 1e-12, f"{what}: cg_update's rs off the plain update by {rs_err:.2e}")
+    solvers.cg_update = cg_update_plain
+    try:
+        plain = sess.solve("cg", b=b, device_loop=True, **kw)
+    finally:
+        solvers.cg_update = cg_update
+    err = rel_err(fused.x, plain.x)
+    check(err < 1e-6, f"{what}: fused cg x off the plain update's by {err:.2e}")
+    res_err = float(np.max(np.abs(np.asarray(fused.residuals) / np.asarray(plain.residuals) - 1)))
+    check(len(fused.residuals) == len(plain.residuals) and res_err <= 1e-9,
+          f"{what}: fused cg residuals off the plain update's by {res_err:.2e}")
+    log(f"[main] {what}: cg_update one call within {call_err:.2e} of plain, rs "
+        f"{rs_err:.2e}, two calls bitwise; solve x {err:.2e}, residuals {res_err:.2e}")
 
 
 def phase_main_path(device) -> dict:
@@ -810,6 +660,8 @@ def phase_main_path(device) -> dict:
                   f"{ex}: cg device_loop={device_loop} ran the fused update {fused} times")
             err = rel_err(res.x, cg_ref.x)
             check(err < 1e-4, f"{ex}: cg device_loop={device_loop} x off by {err:.2e}")
+            if device_loop:
+                check_cg_update(spd_sess, b_cg, res, ex, iters=30)
         torch.cuda.synchronize()
         launches = bell_spmm.launches
         by_variant = dict(bell_spmm.variant_launches)
@@ -827,7 +679,7 @@ def phase_main_path(device) -> dict:
     return out
 
 
-# -- phase 5: serve ----------------------------------------------------------
+# -- phase 4: serve ----------------------------------------------------------
 
 
 class DeviceClock:
@@ -1075,7 +927,7 @@ def phase_serve(main: dict, card: dict, seed: int) -> dict:
     return out
 
 
-# -- phase 6: plans ----------------------------------------------------------
+# -- phase 5: plans ----------------------------------------------------------
 
 
 def plan_deltas(a, rng) -> tuple:
@@ -1342,7 +1194,7 @@ def phase_plans(main: dict, card: dict, seed: int, device) -> dict:
     return {"launches": launches, "variant_launches": by_variant, "value_delta": value_delta}
 
 
-# -- phase 7: faults ---------------------------------------------------------
+# -- phase 6: faults ---------------------------------------------------------
 
 
 def phase_faults(main: dict, plans: dict, card: dict, seed: int) -> dict:
@@ -1519,7 +1371,7 @@ def phase_faults(main: dict, plans: dict, card: dict, seed: int) -> dict:
     return {"launches": launches, "variant_launches": by_variant}
 
 
-# -- phase 8: dist -----------------------------------------------------------
+# -- phase 7: dist -----------------------------------------------------------
 
 
 def phase_dist(main: dict, card: dict, device) -> dict:
@@ -1610,7 +1462,7 @@ def phase_dist(main: dict, card: dict, device) -> dict:
     return {"launches": launches, "variant_launches": by_variant}
 
 
-# -- phase 9: lm kernels -----------------------------------------------------
+# -- phase 8: lm kernels -----------------------------------------------------
 
 
 def moe_routing(rng, tokens: int, experts: int, top_k: int):
@@ -1803,7 +1655,7 @@ def phase_lm_attention(device) -> dict:
             "runs": runs}
 
 
-# -- phase 10: lm serve ------------------------------------------------------
+# -- phase 9: lm serve -------------------------------------------------------
 
 
 def lm_weight_bytes(params) -> int:
@@ -2156,7 +2008,7 @@ def phase_lm_serve(card: dict, seed: int, device) -> None:
         f"the LM path calls no kernel of the port, as the reference's calls no Pallas kernel")
 
 
-# -- phase 11: lm train ------------------------------------------------------
+# -- phase 10: lm train ------------------------------------------------------
 
 
 def grad_errors(grads: dict, ref: dict) -> dict:
@@ -2549,7 +2401,7 @@ def phase_lm_train(card: dict, seed: int, device) -> None:
     return step_ms
 
 
-# -- phase 12: launch --------------------------------------------------------
+# -- phase 11: launch --------------------------------------------------------
 
 
 def launch_train(arch: str, opts: dict, lr: float, mesh, seed: int, device, where: str) -> dict:
@@ -2850,7 +2702,7 @@ def phase_launch(card: dict, seed: int, device, train_step_ms: dict) -> None:
     torch.cuda.empty_cache()
 
 
-# -- phase 13: times ---------------------------------------------------------
+# -- phase 12: times ---------------------------------------------------------
 
 
 def bsr_library_ms(bt, xb, reps):
@@ -2877,25 +2729,6 @@ def bsr_library_ms(bt, xb, reps):
         csr = mat.to_sparse_csr()
         ms = cuda_ms(lambda: torch.sparse.mm(csr, dense_x), reps)
         return ms, "torch.sparse.mm(CSR float32)"
-
-
-def stencil27_coo(n: int):
-    """HPCG's 27-point stencil on an n^3 grid (``GenerateProblem_ref.cpp``:
-    26 on the diagonal, -1 for every neighbour, row ix + n (iy + n iz))."""
-    from repro_torch.sparse.formats import COO
-
-    iz, iy, ix = (a.ravel() for a in np.meshgrid(*(np.arange(n),) * 3, indexing="ij"))
-    rows, cols, vals = [], [], []
-    for dz, dy, dx in np.ndindex(3, 3, 3):
-        jx, jy, jz = ix + dx - 1, iy + dy - 1, iz + dz - 1
-        ok = (jx >= 0) & (jx < n) & (jy >= 0) & (jy < n) & (jz >= 0) & (jz < n)
-        rows.append(np.nonzero(ok)[0])
-        cols.append(jx[ok] + n * (jy[ok] + n * jz[ok]))
-        vals.append(np.full(int(ok.sum()), 26.0 if (dx, dy, dz) == (1, 1, 1) else -1.0))
-    row, col = np.concatenate(rows), np.concatenate(cols)
-    order = np.lexsort((col, row))
-    return COO((n**3, n**3), row[order].astype(np.int32), col[order].astype(np.int32),
-               np.concatenate(vals)[order].astype(np.float32))
 
 
 def ring_stream_times(label: str, bt, ncb: int, batches, where: str) -> None:
@@ -2927,105 +2760,7 @@ def ring_stream_times(label: str, bt, ncb: int, batches, where: str) -> None:
             f"({bound_by}, {bytes_moved / 1e6:.1f} MB) [{where}]")
 
 
-def cg_update_times(sess, label: str, where: str) -> None:
-    """CG's fused update beside its plain version on one session's device
-    loop at B = 1: one call on the loop's first state within 1e-6 of the
-    plain update (rs within 1e-12) and two calls bitwise equal; 50-iteration
-    solves of both loops within 1e-6 of each other. Per iteration, from the
-    difference between solves of 50 and of 10 iterations: the host's wall
-    time (untraced, in turns), and by the profiler the device time of
-    ``bell_spmm``, of the update (the three kernels; for the plain loop its
-    other device time less the fused loop's) and of the rest of the spmv,
-    and the device operations. The plain loop runs in the fused one's place
-    in ``repro_torch.api.solvers`` for the measurement."""
-    import repro_torch.api.solvers as solvers
-    from repro_torch.kernels.spmv.cg_update import cg_buffers, cg_update, cg_update_plain
-    from torch.profiler import ProfilerActivity, profile
-
-    mv = sess.device_spmm()
-    n = sess.device_plan.shape[0]
-    b = np.random.default_rng(3).standard_normal((1, n)).astype(np.float32)
-    bt = torch.as_tensor(b, device="cuda")
-    z = torch.zeros_like(bt)
-    r = bt - mv(z)
-    p = r.clone()
-    rs = (r.double() * r.double()).sum(dim=-1)
-    ap = mv(p)
-    want = cg_update_plain(z, r, p, ap, rs)
-    bufs = [cg_buffers(z.clone(), r.clone(), p.clone(), rs, 1) for _ in range(2)]
-    for buf in bufs:
-        cg_update(buf, ap, 1)
-    for i, name in enumerate(("z", "r", "p")):
-        got = getattr(bufs[0], name)
-        check(torch.equal(got, getattr(bufs[1], name)),
-              f"[times] cg_update on {label}: two calls differ in {name}")
-        err = scaled_err(got, want[i])
-        check(err <= 1e-6, f"[times] cg_update on {label}: {name} off the plain update by "
-              f"{err:.2e}")
-    rs_err = abs(float(bufs[0].rs[1, 0]) / float(want[3][0]) - 1.0)
-    check(rs_err <= 1e-12, f"[times] cg_update on {label}: rs off by {rs_err:.2e}")
-    fused_loop = solvers._cg_loop_fused
-
-    def solve(fused: bool, iters: int):
-        solvers._cg_loop_fused = fused_loop if fused else solvers._cg_loop_plain
-        try:
-            return sess.solve("cg", b=b, iters=iters, tol=0.0, device_loop=True)
-        finally:
-            solvers._cg_loop_fused = fused_loop
-
-    x = {fused: solve(fused, 50).x for fused in (True, False)}
-    x_err = rel_err(x[True], x[False])
-    check(x_err < 1e-6, f"[times] cg on {label}: fused x off the plain loop's by {x_err:.2e}")
-    walls = {}
-    for fused in (True, False, False, True, True, False):
-        for iters in (10, 50):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            solve(fused, iters)
-            walls.setdefault((fused, iters), []).append(time.perf_counter() - t0)
-    wall_ms = {f: (min(walls[f, 50]) - min(walls[f, 10])) / 40 * 1e3 for f in (True, False)}
-    fused_names = ("cg_dot_kernel", "cg_zr_kernel", "cg_p_kernel")
-    per = {}
-    for fused in (True, False):
-        sums = {}
-        for iters in (10, 50):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                solve(fused, iters)
-                torch.cuda.synchronize()
-            by = dict.fromkeys(("bell_spmm", "update", "rest", "ops"), 0.0)
-            for e in prof.events():
-                if e.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                key = ("bell_spmm" if "bell_spmm" in e.name else
-                       "update" if any(k in e.name for k in fused_names) else "rest")
-                by[key] += e.time_range.elapsed_us() / 1e3
-                by["ops"] += 1
-            sums[iters] = by
-        per[fused] = {k: (sums[50][k] - sums[10][k]) / 40 for k in sums[50]}
-    f, pl = per[True], per[False]
-    plain_update = pl["rest"] - f["rest"]
-    bound_ms = 11 * 4 * n / PEAK_BYTES_PER_S * 1e3  # 11 float32 vectors read or written
-    if f["ops"] > 0:
-        log(f"[times] cg_update on {label} B=1, per iteration: fused loop bell_spmm "
-            f"{f['bell_spmm']:.4f} ms, update {f['update']:.4f} ms (3 kernels; bound "
-            f"{bound_ms:.4f} ms by bytes), rest {f['rest']:.4f} ms, device "
-            f"{f['bell_spmm'] + f['update'] + f['rest']:.4f} ms in {f['ops']:.2f} ops; plain "
-            f"loop bell_spmm {pl['bell_spmm']:.4f} ms, update {plain_update:.4f} ms (its "
-            f"operations less the fused loop's rest), device "
-            f"{pl['bell_spmm'] + pl['update'] + pl['rest']:.4f} ms in {pl['ops']:.2f} ops "
-            f"[{where}]")
-    else:
-        log(f"[times] cg_update on {label}: device times not measured (no device events in "
-            f"the profiler's trace) [{where}]")
-    log(f"[times] cg on {label} B=1, per iteration: host wall {wall_ms[True]:.4f} ms fused, "
-        f"{wall_ms[False]:.4f} ms plain (untraced, in turns); fused x within {x_err:.2e} of "
-        f"the plain loop's, one call within 1e-6, rs within {rs_err:.2e}, two calls bitwise "
-        f"[{where}]")
-
-
 def phase_times(main: dict, card: dict, device) -> list:
-    from repro_torch.api import Topology, distribute
     from repro_torch.kernels.spmv import bell_spmm, bell_spmm_plain, bell_tiles, spmm_variant
     import repro_torch.pmvc.dist as dist_mod
     from repro_torch.pmvc.dist import hoist_tiles, pad_x, unit_sum
@@ -3145,35 +2880,12 @@ def phase_times(main: dict, card: dict, device) -> list:
             peak = torch.cuda.max_memory_allocated() / 2**20
             log(f"[times] spmv {ex} B={b}: device {dev_ms:.4f} ms, wall {wall_ms:.3f} ms "
                 f"(numpy in and out), peak device memory {peak:.0f} MiB [{where}]")
-    # ring beside stream: the banded plan (float32 above, float16 here), then
-    # HPCG's 64^3 stencil under NL-HC, the benchmark's plan, whose block-rows
-    # hold about 10 tiles.
+    # ring beside stream on the banded plan, float32 above and float16 here.
     ring_stream_times("banded", bt, dp.num_col_blocks, RING_TIME_BATCHES, where)
     bt16 = bell_tiles(hoist_tiles(dp.tiles, device=device).to(torch.float16), dp.tile_row,
                       dp.tile_col, dp.real_tiles, nrb)
     ring_stream_times("banded", bt16, dp.num_col_blocks, (1, 8), where)
     del bt16
-    t0 = time.perf_counter()
-    stencil = distribute(stencil27_coo(STENCIL_N), topology=Topology(4, 4), combo="NL-HC",
-                         block=16, seed=0, exchange="selective")
-    sdp = stencil.device_plan
-    sbt = bell_tiles(hoist_tiles(sdp.tiles, device=device), sdp.tile_row, sdp.tile_col,
-                     sdp.real_tiles, sdp.num_row_blocks)
-    runs = np.diff(sbt.row_ptr.cpu().numpy(), axis=1)
-    log(f"[times] stencil {STENCIL_N}^3 NL-HC: planned in {time.perf_counter() - t0:.1f} s; "
-        f"{sbt.real_tiles} real tiles, {runs.size} (unit, block-row) runs of {runs.mean():.2f} "
-        f"tiles (max {runs.max()}), {sbt.spans.shape[0]} stream spans, {sbt.pieces.shape[0]} "
-        f"ring pieces")
-    ring_stream_times(f"stencil {STENCIL_N}^3", sbt, sdp.num_col_blocks, RING_TIME_BATCHES,
-                      where)
-    del sbt
-    sbt16 = bell_tiles(hoist_tiles(sdp.tiles, device=device).to(torch.float16), sdp.tile_row,
-                       sdp.tile_col, sdp.real_tiles, sdp.num_row_blocks)
-    ring_stream_times(f"stencil {STENCIL_N}^3", sbt16, sdp.num_col_blocks, (1,), where)
-    del sbt16
-    cg_update_times(stencil, f"stencil {STENCIL_N}^3", where)
-    del stencil, sdp
-    torch.cuda.empty_cache()
     # A measurement for the serving path, not a check: is the whole spmv,
     # unit sum included, column-stable in B on CUDA?
     mv = main["sessions"]["replicated"].device_spmm()
@@ -3382,9 +3094,6 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_card()
     phase_build()
-    phase_kernel(device)
-    phase_kernel_gmm(device)
-    phase_kernel_attn(device)
     main_path = phase_main_path(device)
     serve = phase_serve(main_path, card, args.seed)
     plans = phase_plans(main_path, card, args.seed, device)

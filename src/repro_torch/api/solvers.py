@@ -17,8 +17,8 @@ every (partitioner × exchange × executor) cell. A stepper
   runs the same loop under ``lax.while_loop``; ``iters_run``,
   ``converged`` and the residual history follow the same rules. ``cg``
   takes ``device_loop`` too, with the host loop's arithmetic and its
-  dot products in float64; on a CUDA device its update after each
-  SpMM is the fused kernel of ``kernels/spmv/cg_update.py``.
+  dot products in float64; its update after each SpMM is
+  ``kernels/spmv/cg_update.py``'s, the fused kernels on a CUDA device.
 
 Built-ins: ``"power_iteration"``, ``"block_power_iteration"``,
 ``"jacobi"``, ``"pagerank"``, ``"cg"``.
@@ -33,7 +33,7 @@ import torch
 
 from repro_torch import trace
 from repro_torch.api.registry import Registry
-from repro_torch.kernels.spmv.cg_update import cg_buffers, cg_update, cg_update_plain
+from repro_torch.kernels.spmv.cg_update import cg_buffers, cg_update
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard
     from repro_torch.api.session import SparseSession
@@ -507,64 +507,34 @@ def _cg_device(session, bv, iters, tol) -> SolveResult:
     """CG with the iterate on the session's device: the host loops'
     bookkeeping (``b=[N]`` logs the initial residual and stops on
     breakdown; ``b=[B, N]`` freezes a broken-down row), float32 vectors
-    and float64 dot products. At ``b=[N]`` the breakdown test reads
-    ``pᵀAp``'s verdict on the host once per iteration. On a CUDA device
-    each iteration's update after ``A p`` is the fused kernel
-    (:func:`_cg_loop_fused`); elsewhere it is PyTorch operations
-    (:func:`_cg_loop_plain`). Traced as ``solve.cg``, each iteration as
+    and float64 dot products. Each iteration's update after ``A p`` is one
+    :func:`~repro_torch.kernels.spmv.cg_update.cg_update`, which the
+    buffers' device routes to the fused kernels or to PyTorch operations;
+    the residuals gather in a buffer on the device, copied to the host
+    once. At ``b=[N]`` the breakdown test reads ``pᵀAp``'s verdict on the
+    host once per iteration. Traced as ``solve.cg``, each iteration as
     ``cg.iter`` (:mod:`repro_torch.trace`)."""
     with trace.span("solve.cg"):
         mv = session.device_spmm()
         b = torch.as_tensor(bv, device=session.device)
         z = torch.zeros_like(b)
         r = b - mv(z)
-        p = r.clone()
         rs = (r.double() * r.double()).sum(dim=-1)
-        loop = _cg_loop_fused if b.device.type == "cuda" else _cg_loop_plain
-        z, hist, k = loop(mv, z, r, p, rs, iters, tol, batched=b.dim() == 2)
+        buf = cg_buffers(z, r, r.clone(), rs, iters)
+        batched = b.dim() == 2
+        first = [] if batched else [rs.sqrt().reshape(1)]
+        done = k = 0
+        for k in range(1, iters + 1):  # noqa: B007 — k reported after the loop
+            with trace.span("cg.iter"):
+                cg_update(buf, mv(buf.p), k)
+                if not batched and not bool(buf.ok[0]):
+                    break
+                done = k
+            if tol and float(buf.resid[k - 1]) < tol:
+                break
+        hist = torch.cat(first + [buf.resid[:done]]).cpu().numpy()
         conv = bool(tol and len(hist) and hist[-1] < tol)
-        return _result("cg", z, hist[-1] if len(hist) else 0.0, hist, k, conv)
-
-
-def _cg_loop_plain(mv, z, r, p, rs, iters, tol, batched):
-    """:func:`_cg_device`'s iterations in PyTorch operations
-    (:func:`~repro_torch.kernels.spmv.cg_update.cg_update_plain`): ``(z,
-    residual history as numpy, iterations run)``."""
-    residuals: List[torch.Tensor] = [] if batched else [rs.sqrt()]
-    k = 0
-    for k in range(1, iters + 1):  # noqa: B007 — k reported after the loop
-        with trace.span("cg.iter"):
-            ap = mv(p)
-            z, r, p, rs, ok = cg_update_plain(z, r, p, ap, rs)
-            if not batched and not bool(ok):
-                break
-            residuals.append(rs.sqrt().max())
-        if tol and float(residuals[-1]) < tol:
-            break
-    hist = torch.stack(residuals).cpu().numpy() if residuals else np.zeros(0)
-    return z, hist, k
-
-
-def _cg_loop_fused(mv, z, r, p, rs, iters, tol, batched):
-    """:func:`_cg_loop_plain` on the card, each iteration's update one
-    :func:`~repro_torch.kernels.spmv.cg_update.cg_update` (three kernel
-    launches, counted as ``cg.fused_iters``); the residuals gather in a
-    device buffer, copied to the host once."""
-    buf = cg_buffers(z, r, p, rs, iters)
-    first = [] if batched else [rs.sqrt().reshape(1)]
-    done = k = 0
-    for k in range(1, iters + 1):  # noqa: B007 — k reported after the loop
-        with trace.span("cg.iter"):
-            ap = mv(buf.p)
-            cg_update(buf, ap, k)
-            trace.count("cg.fused_iters", 1)
-            if not batched and not bool(buf.ok[0]):
-                break
-            done = k
-        if tol and float(buf.resid[k - 1]) < tol:
-            break
-    hist = torch.cat(first + [buf.resid[:done]]).cpu().numpy()
-    return buf.z, hist, k
+        return _result("cg", buf.z, hist[-1] if len(hist) else 0.0, hist, k, conv)
 
 
 @SOLVERS.register("cg")

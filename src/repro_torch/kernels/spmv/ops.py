@@ -55,7 +55,8 @@ __all__ = ["BLOCK_SIZES", "VARIANTS", "BellTiles", "bell_tiles", "bell_spmm", "h
            "row_spans", "simt_limit", "spmm_shard", "spmm_shard_ref", "spmm_variant",
            "spmv_shard", "spmv_shard_ref"]
 
-# The tile sides of chip_smoke.py's kernel sweep. Any bm, bn >= 1 is taken:
+# The tile sides of the card tests' sweep (tests/test_torch_gpu.py,
+# test_kernel_matches_plain_and_is_column_stable). Any bm, bn >= 1 is taken:
 # the stream variant's shapes below, every other one on simt.
 BLOCK_SIZES = (8, 16, 32, 64, 128)
 _TYPES = {torch.float32: "f32", torch.float16: "f16"}

@@ -20,10 +20,8 @@ The program's spans (dotted names, see README.md, "Tracing"):
 ``spmv.call`` (one device product) and its phases ``spmv.pad_x``,
 ``spmv.exchange``, ``spmv.kernel``, ``spmv.unit_sum``,
 ``spmv.unblock_y``; ``plan.partition``, ``plan.pack`` and
-``plan.exchange`` inside ``distribute``. Counters:
-``spmv.exchange_bytes``, the bytes the exchange's gathers write;
-``cg.fused_iters``, the device-loop CG iterations whose update ran the
-fused kernels.
+``plan.exchange`` inside ``distribute``. Counter:
+``spmv.exchange_bytes``, the bytes the exchange's gathers write.
 
 Imports only the standard library.
 """

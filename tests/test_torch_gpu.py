@@ -123,11 +123,13 @@ def _variant(name, bt, x):
 @pytest.mark.parametrize("bm,bn", [(8, 8), (8, 16), (16, 16), (32, 32), (8, 128), (128, 128)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float16, 2e-2)])
 @pytest.mark.parametrize("b", [1, 3, 8, 64])
-def test_kernel_matches_plain_and_is_column_stable(cuda, bm, bn, dtype, tol, b):
+@pytest.mark.parametrize("ux", ["U", 1])
+def test_kernel_matches_plain_and_is_column_stable(cuda, bm, bn, dtype, tol, b, ux):
     rng = np.random.default_rng(bm * 1000 + bn)
     tiles, rows, src, counts, nrb, nsrc = _tile_set(rng, bm, bn)
     bt = bell_tiles(torch.as_tensor(tiles, device=cuda).to(dtype), rows, src, counts, nrb)
-    x = torch.as_tensor(rng.standard_normal((3, nsrc, bn, b)).astype(np.float32),
+    u_x = len(counts) if ux == "U" else 1  # per-unit sources, or one shared source
+    x = torch.as_tensor(rng.standard_normal((u_x, nsrc, bn, b)).astype(np.float32),
                         device=cuda).to(dtype)
     variant = spmm_variant(dtype, bm, bn, b)
     before = bell_spmm.launches
@@ -161,11 +163,13 @@ def test_kernel_refuses_misaligned_sources(cuda):
 @pytest.mark.parametrize("bm,bn", [(24, 16), (16, 24), (12, 12), (4, 4), (16, 12)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float16, 2e-2)])
 @pytest.mark.parametrize("b", [1, 8])
-def test_kernel_takes_any_tile_shape(cuda, bm, bn, dtype, tol, b):
+@pytest.mark.parametrize("ux", ["U", 1])
+def test_kernel_takes_any_tile_shape(cuda, bm, bn, dtype, tol, b, ux):
     rng = np.random.default_rng(bm * 100 + bn)
     tiles, rows, src, counts, nrb, nsrc = _tile_set(rng, bm, bn)
     bt = bell_tiles(torch.as_tensor(tiles, device=cuda).to(dtype), rows, src, counts, nrb)
-    x = torch.as_tensor(rng.standard_normal((3, nsrc, bn, b)).astype(np.float32),
+    u_x = len(counts) if ux == "U" else 1
+    x = torch.as_tensor(rng.standard_normal((u_x, nsrc, bn, b)).astype(np.float32),
                         device=cuda).to(dtype)
     variant = spmm_variant(dtype, bm, bn, b)
     wide = "ring" if b <= RING_MAX_BATCH else "stream"
@@ -199,7 +203,8 @@ def _ring_tile_set(rng, bm, bn, u_n=4, nrb=300, nsrc=37):
     return tiles, rows, src, counts, nrb, nsrc
 
 
-@pytest.mark.parametrize("bm,bn", [(8, 8), (16, 16), (24, 16), (32, 32), (16, 32), (32, 8)])
+@pytest.mark.parametrize("bm,bn", [(8, 8), (8, 16), (16, 16), (24, 16), (32, 32), (16, 32),
+                                   (32, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("ux", ["U", 1])
 def test_ring_is_bitwise_stream_and_simt(cuda, bm, bn, dtype, ux):
@@ -321,18 +326,20 @@ def _cg_plain_on_the_card(monkeypatch, sess, **kw):
     """The device loop with the plain update in place of the fused one, on
     the same session."""
     with monkeypatch.context() as m:
-        m.setattr(solvers, "_cg_loop_fused", solvers._cg_loop_plain)
+        m.setattr(solvers, "cg_update", cg_update_plain)
         return sess.solve("cg", device_loop=True, **kw)
 
 
 def _cg_fused_traced(sess, **kw):
-    """A device-loop solve with the tracer on, and its ``cg.fused_iters``."""
+    """A device-loop solve with the tracer on, and the fused updates it
+    launched (``cg_update.launches``)."""
+    before = cg_update.launches
     trace.enable()
     try:
         res = sess.solve("cg", device_loop=True, **kw)
     finally:
         trace.disable()
-    return res, trace.counters().get("cg.fused_iters", 0)
+    return res, cg_update.launches - before
 
 
 @pytest.mark.parametrize("batch", [1, 2, 3, 8])
@@ -345,10 +352,8 @@ def test_fused_cg_update_matches_the_plain_update(cuda, stencil_sessions, monkey
     iteration fused; and a batch with an all-zero row, which stays 0."""
     sess = stencil_sessions[n]
     b = np.random.default_rng(n + batch).standard_normal((batch, n**3)).astype(np.float32)
-    before = cg_update.launches
     fused, counted = _cg_fused_traced(sess, b=b, iters=50, tol=0.0)
     assert fused.iters_run == 50 and counted == 50
-    assert cg_update.launches - before == 50
     again = sess.solve("cg", b=b, iters=50, tol=0.0, device_loop=True)
     assert np.array_equal(fused.x, again.x) and fused.residuals == again.residuals
     plain = _cg_plain_on_the_card(monkeypatch, sess, b=b, iters=50, tol=0.0)
@@ -388,15 +393,16 @@ def test_fused_cg_update_is_the_plain_update_at_one_iteration(cuda):
     ap = torch.as_tensor(rng.standard_normal((5000, 3)).astype(np.float32), device=cuda).T
     p[1] = 0.0
     rs = (r.double() ** 2).sum(-1)
-    want = cg_update_plain(z, r, p, ap, rs)
+    want = cg_buffers(z.clone(), r.clone(), p.clone(), rs, 1)
+    cg_update_plain(want, ap, 1)
     buf = cg_buffers(z.clone(), r.clone(), p.clone(), rs, 1)
     cg_update(buf, ap, 1)
-    assert buf.ok.tolist() == [1, 0, 1]
-    for got, exp in zip((buf.z, buf.r, buf.p), want[:3]):
+    assert buf.ok.tolist() == want.ok.tolist() == [1, 0, 1]
+    for got, exp in ((buf.z, want.z), (buf.r, want.r), (buf.p, want.p)):
         assert torch.equal(got[1], exp[1])
         assert float((got - exp).abs().max() / exp.abs().max()) < 1e-6
-    torch.testing.assert_close(buf.rs[1], want[3], rtol=1e-12, atol=0)
-    assert float(buf.resid[0]) == pytest.approx(float(want[3].sqrt().max()), rel=1e-12)
+    torch.testing.assert_close(buf.rs[1], want.rs[1], rtol=1e-12, atol=0)
+    assert float(buf.resid[0]) == pytest.approx(float(want.resid[0]), rel=1e-12)
 
 
 def test_kernel_refuses_tiles_past_simt_shared_memory(cuda):
@@ -728,15 +734,29 @@ def test_gmm_dispatch_on_the_card(cuda):
 # runs both types on the simt variant; float32 takes regblock at 64-multiple
 # tiles; bf16 takes wgmma where bq is a multiple of 64 (bkv = 16 and 32
 # under its 128-key chunk, bq = 256 as two 128-row blocks), mma elsewhere.
-@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 8), (True, 32),
-                                           (False, 16), (False, 8), (True, 4)])
-@pytest.mark.parametrize("s,t,bq,bkv", [(64, 64, 16, 16), (128, 128, 32, 16),
-                                        (256, 256, 128, 128), (128, 256, 64, 32),
-                                        (128, 32, 32, 16), (64, 32, 16, 16), (128, 32, 16, 16),
-                                        (256, 64, 64, 64), (128, 128, 64, 64),
-                                        (128, 128, 64, 16), (512, 512, 256, 128),
-                                        (256, 64, 128, 32)])
-@pytest.mark.parametrize("d", [16, 24, 64, 80, 128])
+ATTN_CASES = [(causal, window, s, t, bq, bkv, d)
+              for causal, window in ((True, 0), (False, 0), (True, 8), (True, 32), (False, 16),
+                                     (False, 8), (True, 4))
+              for s, t, bq, bkv in ((64, 64, 16, 16), (128, 128, 32, 16), (256, 256, 128, 128),
+                                    (128, 256, 64, 32), (128, 32, 32, 16), (64, 32, 16, 16),
+                                    (128, 32, 16, 16), (256, 64, 64, 64), (128, 128, 64, 64),
+                                    (128, 128, 64, 16), (512, 512, 256, 128),
+                                    (256, 64, 128, 32))
+              for d in (16, 24, 64, 80, 128)]
+# Then a window of 16 and 64 x 64 tiles on a 64-token sequence; T > S and
+# T < S on tiles outside the grid above; and the D the wgmma variant stages
+# in two 64-column boxes or in one box partly past D (48, 96, 112).
+ATTN_CASES += [(causal, window, s, s, bq, bkv, d)
+               for causal, window in ((True, 0), (False, 0), (True, 8), (True, 16), (True, 32))
+               for s, bq, bkv in ((64, 64, 64), (64, 16, 16), (128, 32, 16))
+               for d in (16, 80) if window == 16 or bq == 64]
+ATTN_CASES += [(True, 16, 64, 192, 32, 64, 80), (True, 4, 256, 64, 128, 64, 64),
+               (True, 0, 256, 256, 64, 16, 128), (False, 0, 128, 256, 64, 32, 48),
+               (True, 16, 256, 256, 128, 64, 112), (True, 8, 256, 64, 128, 32, 96),
+               (True, 0, 384, 384, 128, 64, 16)]
+
+
+@pytest.mark.parametrize("causal,window,s,t,bq,bkv,d", ATTN_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain(cuda, causal, window, s, t, bq, bkv, d, dtype):
     rng = np.random.default_rng(s + d + window)

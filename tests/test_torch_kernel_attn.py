@@ -131,8 +131,8 @@ def test_plain_wants_both_tiles_or_neither():
         attention_plain(q, k, v, bq=24, bkv=16)
 
 
-# Every shape the card runs (chip_smoke.py's sweep and [lm kernels],
-# tests/test_torch_gpu.py), with the variant it must take:
+# Every shape the card runs (tests/test_torch_gpu.py's sweep and
+# chip_smoke.py's [lm kernels]), with the variant it must take:
 # (dtype, D, bq, bkv, variant).
 VARIANT_CASES = [
     *[(dt, d, bq, bkv, ("wgmma" if bq % 64 == 0 else "mma") if dt == "bfloat16" else

@@ -117,8 +117,8 @@ def test_gmm_end_to_end_dispatch():
     assert not y[~valid].any()  # padding rows are zero in, zero out
 
 
-# Every shape the card runs (chip_smoke.py's sweep and [lm kernels],
-# tests/test_torch_gpu.py) as (e, k, n, bm), with the variant each input
+# Every shape the card runs (tests/test_torch_gpu.py's sweep and
+# chip_smoke.py's [lm kernels]) as (e, k, n, bm), with the variant each input
 # type must take: (bm, k, n, bf16 variant, float32 variant).
 VARIANT_CASES = [
     (8, 32, 64, "simt", "simt"),  # the reference tests' shapes
