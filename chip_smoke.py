@@ -8,7 +8,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. **card** — the device's name and count, and ``nvidia-smi``'s name and
    power limit;
 2. **build** — the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (``bell_spmm``, ``gmm``, ``flash_attention``, ``cg_update``), all ``nvcc`` processes
+   (``bell_spmm``, ``gmm``, ``flash_attention``, ``cg_update``, ``gather_rows``), all ``nvcc`` processes
    started together, with ``-Xptxas -v``'s registers and spills, each
    line after the name of its kernel;
 3. **main path** — ``distribute`` → ``spmv`` → ``solve`` at the repo's
@@ -22,7 +22,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (``cg_update``) once an iteration, one call within 1e-6 of
    ``cg_update_plain`` on the loop's first state and two calls bitwise,
    and its solve within 1e-6 of the same loop with the plain update
-   (residuals within 1e-9);
+   (residuals within 1e-9); the exchange's gather (``gather_rows``) must
+   have run once a product selective, K times under overlap:K, never
+   replicated, and on the session's own step, for each exchange and
+   each batch width, bitwise ``gather_rows_plain`` with its zero slots
+   zero and two launches bitwise;
 4. **serve** — the serving path on the main path's sessions (nothing
    re-planned), for each exchange: one ``SparseServeEngine``
    (``batch_slots`` 8, 20 iterations, ``A`` as ``a`` and the SPD matrix
@@ -441,7 +445,7 @@ def phase_build() -> None:
     from repro_torch.kernels.build import build
 
     t0 = time.perf_counter()
-    libs = build(["bell_spmm", "gmm", "flash_attention", "cg_update"])
+    libs = build(["bell_spmm", "gmm", "flash_attention", "cg_update", "gather_rows"])
     log(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
     for lib in libs.values():
         log(f"[build] {lib.name}: nvcc {lib.seconds:.2f} s -> {os.path.basename(lib.path)}")
@@ -594,10 +598,42 @@ def check_cg_update(sess, b: np.ndarray, fused, what: str, **kw) -> None:
         f"{rs_err:.2e}, two calls bitwise; solve x {err:.2e}, residuals {res_err:.2e}")
 
 
+def check_exchange_gather(sess, xs: dict, what: str) -> None:
+    """The exchange's gather (``gather_rows``) against its plain version
+    on the session's own step: for each of its exchanges (one selective,
+    one a wave under overlap) and each batch width in ``xs``, the padded
+    x gathered by the step's composed index bitwise
+    ``gather_rows_plain``'s, its −1 slots zero, two launches bitwise."""
+    from repro_torch.kernels.spmv.gather import gather_rows, gather_rows_plain
+    from repro_torch.pmvc.dist import make_simulate_fn, pad_x
+
+    dp = sess.device_plan
+    step = make_simulate_fn(dp, sess.selective, device=sess.device,
+                            transform=sess.tile_transform)
+    check(bool(step.exchanges) and all(ex.composed for ex in step.exchanges),
+          f"{what}: the one-device step did not compose its exchange")
+    zeros = 0
+    for b, x in xs.items():
+        x4 = pad_x(torch.as_tensor(x, device=sess.device), dp.num_col_blocks, dp.bn)
+        for k, ex in enumerate(step.exchanges):
+            got, again = gather_rows(x4, ex.index), gather_rows(x4, ex.index)
+            want = gather_rows_plain(x4, ex.index)
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"{what}: gather_rows differs from the plain gather (B={b}, exchange {k})")
+            check(torch.equal(got, again), f"{what}: two gather_rows launches differ (B={b})")
+            zero = ex.index < 0
+            check(not bool(got[zero].any()), f"{what}: a zero slot is not zero (B={b})")
+            zeros += int(zero.sum())
+    log(f"[main] {what}: gather_rows bitwise the plain gather on the step's "
+        f"{len(step.exchanges)} index(es) [{', '.join(str(list(ex.index.shape)) for ex in step.exchanges)}] "
+        f"at B={sorted(xs)}, {zeros} zero slot(s), two launches bitwise")
+
+
 def phase_main_path(device) -> dict:
     from repro_torch.api import Topology, distribute
     from repro_torch.kernels.spmv import bell_spmm
     from repro_torch.kernels.spmv.cg_update import cg_update
+    from repro_torch.kernels.spmv.gather import gather_rows
     from repro_torch.sparse.generate import banded_coo
 
     cfg = SCALE_CONFIG
@@ -636,6 +672,7 @@ def phase_main_path(device) -> dict:
     for ex in EXCHANGES:
         bell_spmm.launches = 0
         bell_spmm.variant_launches = dict.fromkeys(bell_spmm.variant_launches, 0)
+        gather_rows.launches = 0
         t0 = time.perf_counter()
         sess = distribute(a, exchange=ex, **common)  # on the card by default
         t_plan_a = time.perf_counter() - t0
@@ -667,9 +704,20 @@ def phase_main_path(device) -> dict:
         by_variant = dict(bell_spmm.variant_launches)
         check(launches > 0, f"{ex}: bell_spmm was never launched on the main path")
         check_main_variants(by_variant, launches, f"{ex}: the main path")
+        # One gather a product's exchange: one a product selective (one
+        # bell_spmm launch), K under overlap:K (1 + K launches).
+        gathers = gather_rows.launches
+        waves = getattr(sess.selective, "waves", 1) if sess.selective is not None else 0
+        per = 1 + waves if ex.startswith("overlap") else 1  # bell_spmm launches a product
+        products = launches // per
+        check(launches % per == 0 and gathers == waves * products,
+              f"{ex}: the exchange's gather ran {gathers} times for {products} products "
+              f"({waves} a product expected)")
+        if sess.selective is not None:
+            check_exchange_gather(sess, xs, ex)
         log(f"[main] {ex}: planning {t_plan:.1f} s (A alone {t_plan_a:.2f} s), spmv + "
             f"power_iteration + pagerank + cg (host and device loops) ok; bell_spmm launches "
-            f"{launches} {by_variant}")
+            f"{launches} {by_variant}; gather_rows launches {gathers}")
         out["launches"] += launches
         for v, c in by_variant.items():
             out["variant_launches"][v] += c

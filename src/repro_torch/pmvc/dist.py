@@ -5,8 +5,9 @@ ch.4's measurement decomposition:
 
 * **Scatter** (fan-out of x): replicated (``échange total``, every unit
   reads the whole x) or the **selective exchange** — the static
-  all_to_all schedule of :class:`repro_torch.pmvc.plan_device.SelectivePlan`,
-  emulated here by index gathers on one device.
+  all_to_all schedule of :class:`repro_torch.pmvc.plan_device.SelectivePlan`.
+  On one device the schedule's owned → send → receive → workspace chain
+  is composed when the step is built into one gather of x a call.
 * **Compute**: the per-unit Block-ELL SpMM, all units in one launch of
   the hand-written kernel (:func:`repro_torch.kernels.spmv.bell_spmm`).
 * **Gather + construction of Y**: the partial y of every unit summed.
@@ -55,6 +56,7 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device, trace
 from repro_torch.kernels.spmv import BellTiles, bell_spmm, bell_tiles, host_tensor
+from repro_torch.kernels.spmv.gather import gather_rows
 from repro_torch.pmvc.plan_device import (
     DevicePlan,
     ExchangePlan,
@@ -311,15 +313,90 @@ def _send_buffer(x_owned: torch.Tensor, send_idx: torch.Tensor, world: int) -> t
     return send.permute(1, 2, 0, *range(3, send.dim()))
 
 
-def _workspace(recv: torch.Tensor, recv_src: torch.Tensor, recv_lane: torch.Tensor) -> torch.Tensor:
-    """Each local unit's compact workspace ``[Lr, W', bn(, B)]`` from the
-    received ``[W, Lr(dst), Lr(src), L, bn(, B)]``: ``recv_src`` /
-    ``recv_lane`` ``[Lr, W']`` name the source unit and lane of each
-    slot (source units numbered across the ranks in order)."""
-    w, lr, ls = recv.shape[:3]
-    by_src = recv.permute(1, 0, 2, *range(3, recv.dim())).reshape(lr, w * ls, *recv.shape[3:])
-    local = torch.arange(lr, device=recv.device)[:, None]
-    return by_src[local, recv_src, recv_lane]
+def _by_source(recv: torch.Tensor) -> torch.Tensor:
+    """The received ``[W, Lr(dst), Lr(src), L, bn(, B)]`` as one stack of
+    x blocks ``[Lr·W·Lr·L, bn(, B)]``, destination unit first, then the
+    source unit numbered across the ranks in order, then the lane."""
+    return recv.permute(1, 0, 2, *range(3, recv.dim())).reshape(-1, *recv.shape[4:])
+
+
+def _workspace(blocks: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """Each local unit's compact workspace ``[Lr, W', bn(, B)]``: one
+    gather along dim 0 of the stacked x blocks ``blocks`` ``[M, bn(,
+    B)]`` by ``index`` ``[Lr, W']``, a zero block where it is −1
+    (:func:`repro_torch.kernels.spmv.gather.gather_rows`: one launch on
+    the card)."""
+    return gather_rows(blocks, index)
+
+
+def _recv_index(recv_src: np.ndarray, recv_lane: np.ndarray, world: int, lanes: int) -> np.ndarray:
+    """``recv_src`` / ``recv_lane`` ``[Lr, W']`` (source unit and lane of
+    each slot) as one index into :func:`_by_source`'s stack."""
+    lr = recv_src.shape[0]
+    dst = np.arange(lr, dtype=np.int64)[:, None] * (world * lr)
+    return (dst + recv_src) * lanes + recv_lane
+
+
+def _composed_index(owned: np.ndarray, send_idx: np.ndarray, recv: np.ndarray, ncb: int):
+    """The one-rank exchange composed into one gather: ``[Lr, W']``, the
+    x block of each workspace slot, −1 for a zero block. Made by running
+    the owned → send → workspace chain once on block ids (1-based, 0 for
+    a zero block; float64 holds them exactly), with ``all_to_all`` the
+    identity, so it is that chain by construction. ``recv`` is the
+    chain's index into :func:`_by_source`."""
+    ids = torch.arange(1, ncb + 1, dtype=torch.float64)[:, None]
+    x_owned = _owned_blocks(torch.tensor(owned, dtype=torch.long), ids)
+    sent = _send_buffer(x_owned, torch.tensor(send_idx, dtype=torch.long), 1)
+    ws = _workspace(_by_source(sent), torch.tensor(recv, dtype=torch.long))
+    return ws[..., 0].long() - 1
+
+
+class _Exchange:
+    """One exchange of a step (one wave's, under overlap) with its index
+    arrays on the device: :meth:`send` issues it from x and the owned
+    blocks, :meth:`receive` makes the workspaces ``[Lr, W', bn(, B)]``
+    of what arrived.
+
+    Over a :class:`LocalCommunicator` (one rank, no process group,
+    ``all_to_all`` the identity) the exchange is composed: :meth:`send`
+    gathers x straight into the workspaces, one launch on the card, and
+    hands them to ``all_to_all``. Otherwise the owned blocks go out in a
+    send buffer and :meth:`receive` gathers the workspaces from the
+    received one."""
+
+    def __init__(self, comm: Communicator, owned: np.ndarray, send_idx: np.ndarray,
+                 recv_src: np.ndarray, recv_lane: np.ndarray, ncb: int, device):
+        self.comm = comm
+        self.composed = isinstance(comm, LocalCommunicator)
+        lr, lanes = recv_src.shape[0], send_idx.shape[-1]
+        if recv_src.size and not (0 <= recv_src.min() and recv_src.max() < comm.world * lr
+                                  and 0 <= recv_lane.min() and recv_lane.max() < lanes):
+            raise ValueError("recv_src / recv_lane name blocks outside the received buffer")
+        recv = _recv_index(recv_src, recv_lane, comm.world, lanes)
+        self.slots = recv.size  # x blocks written a call
+        if self.composed:
+            index = _composed_index(owned, send_idx, recv, ncb)
+            rows = ncb  # x's blocks
+        else:
+            index = torch.as_tensor(recv)
+            rows = lr * comm.world * lr * lanes  # _by_source's stack
+            self.send_idx = _index(send_idx, device)
+            self.slots += send_idx.size
+        # gather_rows does not check its index on the card: check it here,
+        # once, where it is fixed.
+        if index.numel() and not (-1 <= int(index.min()) and int(index.max()) < rows):
+            raise ValueError(f"the exchange's index names blocks outside [-1, {rows})")
+        self.index = index.to(device=device, dtype=torch.long)
+
+    def send(self, x4: torch.Tensor, x_owned: Optional[torch.Tensor]):
+        """Issue the exchange; ``(recv, work)`` of its collective.
+        ``x_owned`` may be ``None`` when composed."""
+        if self.composed:
+            return self.comm.all_to_all(_workspace(x4, self.index))
+        return self.comm.all_to_all(_send_buffer(x_owned, self.send_idx, self.comm.world))
+
+    def receive(self, recv: torch.Tensor) -> torch.Tensor:
+        return recv if self.composed else _workspace(_by_source(recv), self.index)
 
 
 def make_pmvc_step(
@@ -353,7 +430,9 @@ def make_pmvc_step(
 
     The rank's plan arrays are hoisted to ``device`` (the card when
     omitted) once, here; ``transform`` is the value-view map of
-    :func:`hoist_tiles`.
+    :func:`hoist_tiles`. ``step.exchanges`` lists the step's exchanges
+    (:class:`_Exchange`: none replicated, one selective, one a wave
+    under overlap), each with its gather's ``index`` on the device.
     """
     dev = resolve_device(device)
     comm = mesh.comm
@@ -368,16 +447,20 @@ def make_pmvc_step(
         with trace.span("spmv.unit_sum"):
             return comm.psum(unit_sum(partials))
 
-    def count_exchange(slots: int, x4: torch.Tensor) -> None:
-        # The bytes the gathers write: ``slots`` x blocks (send buffers
-        # and workspaces), each [bn, B].
+    def count_exchange(exchanges: List[_Exchange], x4: torch.Tensor) -> None:
+        # The bytes the gathers write: x blocks, each [bn, B], of the
+        # send buffers and workspaces, or of the composed workspaces.
+        slots = sum(ex.slots for ex in exchanges)
         trace.count("spmv.exchange_bytes", slots * x4[0].numel() * x4.element_size())
+        if any(ex.composed for ex in exchanges):
+            trace.count("spmv.exchange_composed", 1)
 
-    def batched(run):
+    def batched(run, exchanges=()):
         def step(xb: torch.Tensor) -> torch.Tensor:
             y = run(xb if xb.dim() == 3 else xb[..., None])
             return y if xb.dim() == 3 else y[..., 0]
 
+        step.exchanges = list(exchanges)
         return step
 
     def hoist(tiles: np.ndarray) -> torch.Tensor:
@@ -393,30 +476,30 @@ def make_pmvc_step(
                        op.halo_slot[lo:hi, k], op.halo_wave_counts[lo:hi, k], nrb)
             for k in range(op.waves)
         ]
-        wave_send_idx = _index(op.wave_send_idx[lo:hi], dev)  # [Lr, K, U, L]
-        wave_recv_src = _index(op.wave_recv_src[lo:hi], dev)  # [Lr, K, W']
-        wave_recv_lane = _index(op.wave_recv_lane[lo:hi], dev)
-        slots = wave_send_idx.numel() + wave_recv_src.numel()
+        wave_ex = [
+            _Exchange(comm, op.selective.owned[lo:hi], op.wave_send_idx[lo:hi, k],
+                      op.wave_recv_src[lo:hi, k], op.wave_recv_lane[lo:hi, k],
+                      plan.num_col_blocks, dev)
+            for k in range(op.waves)
+        ]
 
         def run_overlap(x4: torch.Tensor) -> torch.Tensor:
             if trace.on:
-                count_exchange(slots, x4)
+                count_exchange(wave_ex, x4)
             # Every wave's collective issued before any contraction; wave
             # k's halo waits on wave k alone.
             with trace.span("spmv.exchange"):
                 x_owned = _owned_blocks(owned, x4)
-                sent = [comm.all_to_all(_send_buffer(x_owned, wave_send_idx[:, k], comm.world))
-                        for k in range(op.waves)]
+                sent = [ex.send(x4, x_owned) for ex in wave_ex]
             partials = comm.dot(local, x_owned)
-            for k, bt in enumerate(waves):
+            for (recv, work), ex, bt in zip(sent, wave_ex, waves):
                 with trace.span("spmv.exchange"):
-                    recv, work = sent[k]
                     work.wait()
-                    ws = _workspace(recv, wave_recv_src[:, k], wave_recv_lane[:, k])
+                    ws = ex.receive(recv)
                 partials = partials + comm.dot(bt, ws)
             return finish(partials)
 
-        return batched(run_overlap)
+        return batched(run_overlap, wave_ex)
 
     tiles = hoist(plan.tiles[lo:hi])
     if selective is None:
@@ -427,23 +510,20 @@ def make_pmvc_step(
     sp = selective
     bt = bell_tiles(tiles, plan.tile_row[lo:hi], sp.tile_col_local[lo:hi],
                     plan.real_tiles[lo:hi], nrb)
-    owned = _index(sp.owned[lo:hi], dev)  # [Lr, per]
-    send_idx = _index(sp.send_idx[lo:hi], dev)  # [Lr, U, L]
-    recv_src = _index(sp.recv_src[lo:hi], dev)  # [Lr, W']
-    recv_lane = _index(sp.recv_lane[lo:hi], dev)
-    slots = send_idx.numel() + recv_src.numel()
+    ex = _Exchange(comm, sp.owned[lo:hi], sp.send_idx[lo:hi], sp.recv_src[lo:hi],
+                   sp.recv_lane[lo:hi], plan.num_col_blocks, dev)
+    owned = None if ex.composed else _index(sp.owned[lo:hi], dev)  # [Lr, per]
 
     def run_selective(x4: torch.Tensor) -> torch.Tensor:
         if trace.on:
-            count_exchange(slots, x4)
+            count_exchange([ex], x4)
         with trace.span("spmv.exchange"):
-            send = _send_buffer(_owned_blocks(owned, x4), send_idx, comm.world)
-            recv, work = comm.all_to_all(send)
+            recv, work = ex.send(x4, None if owned is None else _owned_blocks(owned, x4))
             work.wait()
-            ws = _workspace(recv, recv_src, recv_lane)
+            ws = ex.receive(recv)
         return finish(comm.dot(bt, ws))
 
-    return batched(run_selective)
+    return batched(run_selective, [ex])
 
 
 def make_simulate_fn(

@@ -20,8 +20,12 @@ The program's spans (dotted names, see README.md, "Tracing"):
 ``spmv.call`` (one device product) and its phases ``spmv.pad_x``,
 ``spmv.exchange``, ``spmv.kernel``, ``spmv.unit_sum``,
 ``spmv.unblock_y``; ``plan.partition``, ``plan.pack`` and
-``plan.exchange`` inside ``distribute``. Counter:
-``spmv.exchange_bytes``, the bytes the exchange's gathers write.
+``plan.exchange`` inside ``distribute``. Counters:
+``spmv.exchange_bytes``, the bytes the exchange's gathers write (across
+ranks the send buffers and workspaces; on one device, where the exchange
+is composed into one gather, the workspaces alone: Lr·W' x blocks a
+call); ``spmv.exchange_composed``, the products whose exchange took that
+one gather.
 
 Imports only the standard library.
 """

@@ -2,6 +2,8 @@
 against the JAX package's ``repro.pmvc.dist`` on the same plans: every
 exchange regime at 1e-5, bitwise agreement across wave counts on
 integer data, and the layout helpers."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,9 @@ from repro.pmvc.plan_device import (
 from repro.sparse.bell import pad_x_blocks as jx_pad_x_blocks
 from repro.sparse.formats import COO as JxCOO, dense_from_coo
 from repro.sparse.generate import banded_coo, random_coo
+from repro_torch import trace
+from repro_torch.api import Topology, distribute
+from repro_torch.kernels.spmv.gather import gather_rows
 from repro_torch.pmvc import dist
 from repro_torch.pmvc.plan_device import (
     build_overlap_plan,
@@ -23,6 +28,7 @@ from repro_torch.pmvc.plan_device import (
     pack_units,
 )
 from repro_torch.sparse.formats import COO
+from _torch_one_rank import OneRankChain
 from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
@@ -158,3 +164,112 @@ def test_unit_sum_is_the_cumsum_it_replaces(u, b):
         assert torch.equal(dist.unit_sum(partials), want)
     finally:
         torch.use_deterministic_algorithms(before)
+
+
+def _one_device_plan(kind, regime):
+    """A banded matrix under NC-HC (units need different halos, some
+    workspace slots are zero blocks) or a random one, elements dealt to
+    units at random."""
+    if kind == "banded-NC-HC":
+        a = banded_coo(192, 2000, seed=11)
+        sess = distribute(COO(a.shape, a.row, a.col, a.val), topology=Topology(2, 2),
+                          combo="NC-HC", exchange=regime, block=8, device="cpu")
+        return sess.device_plan, sess.selective
+    pt_dp, _ = _plans(random_coo(150, 1500, seed=6), 6)
+    ex = build_selective_plan(pt_dp) if regime == "selective" else build_overlap_plan(pt_dp, waves=2)
+    return pt_dp, ex
+
+
+@pytest.mark.parametrize("kind", ["banded-NC-HC", "random"])
+@pytest.mark.parametrize("regime", ["selective", "overlap:2"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_the_one_device_exchange_is_one_gather_bitwise_the_chain(monkeypatch, kind, regime, b):
+    """Over a ``LocalCommunicator`` each exchange is one gather of x into
+    the workspaces (−1 a zero block), composed when the step is built:
+    its workspaces, then y, are bitwise those of the three-step chain a
+    real communicator runs, and the counter ``spmv.exchange_composed``
+    counts one a call."""
+    dp, ex = _one_device_plan(kind, regime)
+    composed = dist.make_pmvc_step(dp, dist.make_unit_mesh(dp.num_units, comm=dist.LocalCommunicator()),
+                                   selective=ex, device=CPU)
+    chain = dist.make_pmvc_step(dp, dist.make_unit_mesh(dp.num_units, comm=OneRankChain()),
+                                selective=ex, device=CPU)
+    xb = torch.randn((dp.num_col_blocks, dp.bn, b), generator=torch.Generator().manual_seed(b))
+
+    gathers = {}
+    orig = dist._workspace
+
+    def record(name):
+        def workspace(*a):
+            ws = orig(*a)
+            gathers[name].append((a, ws.clone()))
+            return ws
+        return workspace
+
+    ys = {}
+    for name, step in (("composed", composed), ("chain", chain)):
+        gathers[name] = []
+        monkeypatch.setattr(dist, "_workspace", record(name))
+        if name == "composed":  # no send buffer, and owned blocks only for overlap's local set
+            monkeypatch.setattr(dist, "_send_buffer", None)
+        ys[name] = step(xb)
+        monkeypatch.undo()
+
+    waves = 2 if regime == "overlap:2" else 1
+    assert len(gathers["composed"]) == len(gathers["chain"]) == waves
+    assert len(composed.exchanges) == len(chain.exchanges) == waves
+    for (args, ws), (_, want), ex in zip(gathers["composed"], gathers["chain"], composed.exchanges):
+        assert args[0] is xb and args[1] is ex.index  # straight from x, by the step's index
+        assert ws.shape == want.shape and torch.equal(ws, want)
+    filled = [(args[1] < 0, ws) for args, ws in gathers["composed"] if bool((args[1] < 0).any())]
+    if kind == "banded-NC-HC":  # zero-block slots are exercised
+        assert filled
+    for zero, ws in filled:
+        assert not ws[zero].any()
+    assert torch.equal(ys["composed"], ys["chain"])
+
+    rep = dist.make_simulate_fn(dp, None, device=CPU)
+    trace.enable()
+    try:
+        for _ in range(3):
+            composed(xb)
+        after_composed = trace.counters().get("spmv.exchange_composed", 0)
+        chain(xb)
+        rep(xb)
+        counted = trace.counters().get("spmv.exchange_composed", 0)
+    finally:
+        trace.disable()
+    assert after_composed == counted == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16])
+def test_gather_rows_takes_rows_and_zero_rows(dtype):
+    """The exchange's gather off the card: rows of any element type by an
+    int64 index, −1 a zero row; another index type is refused."""
+    src = torch.arange(1, 25).to(dtype).reshape(6, 2, 2)
+    index = torch.tensor([[5, -1, 0], [-1, 5, 2]])
+    out = gather_rows(src, index)
+    assert out.shape == (2, 3, 2, 2) and out.dtype == dtype
+    want = torch.stack([src[5], torch.zeros(2, 2, dtype=dtype), src[0],
+                        torch.zeros(2, 2, dtype=dtype), src[5], src[2]]).reshape(out.shape)
+    assert torch.equal(out, want)
+    assert torch.equal(gather_rows(src, index.clamp(min=0)), src[index.clamp(min=0)])
+    with pytest.raises(ValueError, match="int64"):
+        gather_rows(src, index.int())
+
+
+def test_a_receive_index_past_the_buffer_is_refused():
+    """A plan whose receive lanes or source units point past what
+    arrives is refused when the step is built, on one device and across
+    ranks, before any pointer reaches the kernel."""
+    dp, sp = _one_device_plan("random", "selective")
+    lane = sp.recv_lane.copy()
+    lane[0, 0] = sp.send_idx.shape[-1]
+    bad = dataclasses.replace(sp, recv_lane=lane)
+    src = sp.recv_src.copy()
+    src[-1, -1] = dp.num_units
+    for bad in (bad, dataclasses.replace(sp, recv_src=src)):
+        for comm in (OneRankChain(), dist.LocalCommunicator()):
+            with pytest.raises(ValueError, match="outside the received buffer"):
+                dist.make_pmvc_step(dp, dist.make_unit_mesh(dp.num_units, comm=comm),
+                                    selective=bad, device=CPU)

@@ -22,6 +22,8 @@ installed::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -64,7 +66,8 @@ from repro_torch.models import build, lm_from_numpy, lm_to_numpy
 from repro_torch.optim import init_opt
 from repro_torch.train import TrainLoop, make_train_step
 from repro_torch.train.step import value_and_grad
-from repro_torch.pmvc.dist import Communicator, hoist_tiles, make_pmvc_step, make_unit_mesh, pad_x
+from repro_torch.pmvc.dist import (Communicator, LocalCommunicator, hoist_tiles, make_pmvc_step,
+                                   make_unit_mesh, pad_x)
 from repro_torch.pmvc.plan_device import pack_units
 from repro_torch.runtime import FaultInjector
 from repro_torch.serve import Request, ServeEngine, SparseServeEngine, Status, greedy_generate
@@ -72,7 +75,9 @@ from repro_torch.sparse.bell import pack_bell, tile_counts
 from repro_torch.sparse.formats import COO
 from repro_torch.sparse.generate import banded_coo, random_coo
 from repro_torch.kernels.spmv.cg_update import cg_buffers, cg_update, cg_update_plain
+from repro_torch.kernels.spmv.gather import gather_rows, gather_rows_plain
 from repro_torch.kernels.spmv.ops import RING_MAX_BATCH
+from _torch_one_rank import OneRankChain
 
 pytestmark = pytest.mark.gpu
 
@@ -382,6 +387,53 @@ def test_fused_cg_keeps_the_single_vector_bookkeeping(cuda, stencil_sessions, mo
     assert counted == fused.iters_run
     assert len(fused.residuals) == fused.iters_run + 1
     np.testing.assert_allclose(fused.residuals, plain.residuals, rtol=1e-9, atol=0)
+
+
+@pytest.mark.parametrize("b,variant", [(1, "ring"), (4, "stream")])
+def test_composed_exchange_is_the_chain_on_the_card(cuda, stencil_sessions, b, variant):
+    """On the selective stencil plan, y from the one-gather exchange a
+    ``LocalCommunicator`` composes is bitwise the three-step chain's, on
+    the variant the batch width picks."""
+    sess = stencil_sessions[32]
+    dp = sess.device_plan
+    steps = [make_pmvc_step(dp, make_unit_mesh(dp.num_units, comm=comm),
+                            selective=sess.selective, device=cuda)
+             for comm in (LocalCommunicator(), OneRankChain())]
+    x = torch.randn((dp.num_col_blocks, dp.bn, b), generator=torch.Generator().manual_seed(b))
+    x = x.to(cuda)
+    before, gathers = bell_spmm.variant_launches[variant], gather_rows.launches
+    composed = steps[0](x)
+    assert gather_rows.launches == gathers + 1  # the exchange's one launch
+    chain = steps[1](x)
+    assert bell_spmm.variant_launches[variant] == before + 2
+    assert torch.equal(composed, chain)
+
+
+@pytest.mark.parametrize("dtype,tail,offset", [
+    (torch.float32, (16, 1), 0),  # 64-byte rows: 16-byte vectors
+    (torch.float32, (16, 4), 0),
+    (torch.float32, (16, 1), 1),  # a source 4 bytes off: 4-byte words
+    (torch.float32, (3, 1), 0),   # 12-byte rows
+    (torch.float16, (3, 1), 0),   # 6-byte rows: bytes
+    (torch.float64, (8, 2), 0),
+])
+def test_gather_rows_is_the_plain_gather(cuda, dtype, tail, offset):
+    """The hand-written gather, by each of its vector widths, bitwise
+    ``gather_rows_plain``: rows in any order, repeated, and −1 slots as
+    zero rows."""
+    g = torch.Generator().manual_seed(3)
+    rows = 1000
+    flat = torch.randn(rows * math.prod(tail) + offset, generator=g).to(dtype).to(cuda)
+    src = flat[offset:].view(rows, *tail)  # offset elements past the allocation's start
+    index = torch.randint(-1, rows, (7, 300), generator=g)
+    index[0, :5] = -1
+    index = index.to(cuda)
+    before = gather_rows.launches
+    got = gather_rows(src, index)
+    assert gather_rows.launches == before + 1
+    want = gather_rows_plain(src, index)
+    assert got.shape == (7, 300, *tail) and torch.equal(got, want)
+    assert not got[index < 0].any()
 
 
 def test_fused_cg_update_is_the_plain_update_at_one_iteration(cuda):

@@ -12,11 +12,14 @@ from collections import Counter
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch import trace
 from repro_torch.api import Topology, distribute
 from repro_torch.api.session import LOCALITY_GRID
+from repro_torch.pmvc import dist
 from repro_torch.sparse.formats import COO
+from _torch_one_rank import OneRankChain
 from _torch_threads import one_cpu_thread  # noqa: F401 (autouse)
 
 EXCHANGES = ("replicated", "selective", "overlap:2")
@@ -129,12 +132,35 @@ def test_the_exchange_counts_the_bytes_its_gathers_write(exchange):
     if sp is None:
         assert counted == 0
         return
-    if hasattr(sp, "wave_send_idx"):  # overlap: every wave's send buffer and workspace
+    # One device: each exchange is composed into one gather, which
+    # writes the workspaces alone (every wave's, under overlap).
+    slots = sp.wave_recv_src.size if hasattr(sp, "wave_recv_src") else sp.recv_src.size
+    calls = sum(1 for r in trace.spans() if r[0] == "spmv.call")
+    assert counted == calls * slots * sess.device_plan.bn * batch * 4
+
+
+@pytest.mark.parametrize("exchange", EXCHANGES[1:])
+def test_the_exchange_across_ranks_counts_its_send_buffers_and_workspaces(exchange):
+    """A step over a real communicator keeps the three steps: its
+    gathers write the send buffers and the workspaces (every wave's,
+    under overlap), and no product counts as composed."""
+    batch, calls = 3, 2
+    sess = _session(exchange)
+    dp, sp = sess.device_plan, sess.selective
+    step = dist.make_pmvc_step(dp, dist.make_unit_mesh(dp.num_units, comm=OneRankChain()),
+                               selective=sp, device="cpu")
+    xb = torch.ones((dp.num_col_blocks, dp.bn, batch))
+    trace.enable()
+    for _ in range(calls):
+        step(xb)
+    trace.disable()
+    counters = trace.counters()
+    if hasattr(sp, "wave_send_idx"):
         slots = sp.wave_send_idx.size + sp.wave_recv_src.size
     else:
         slots = sp.send_idx.size + sp.recv_src.size
-    calls = sum(1 for r in trace.spans() if r[0] == "spmv.call")
-    assert counted == calls * slots * sess.device_plan.bn * batch * 4
+    assert counters.get("spmv.exchange_bytes", 0) == calls * slots * dp.bn * batch * 4
+    assert counters.get("spmv.exchange_composed", 0) == 0
 
 
 @pytest.mark.parametrize("batch", [0, 2])
