@@ -21,7 +21,6 @@ import argparse
 import contextlib
 import dataclasses
 import gc
-import importlib.util
 import json
 import math
 import os
@@ -31,12 +30,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from portbench import loops, reference
+from portbench import HERE, load, loops, reference
 from portbench import trace as tracing
 from portbench.loops import Context, Run
 from portbench.matrices import make_graphs
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 # Top-level module names that may not be loaded once the window closes:
 # JAX and the JAX package the program was ported from.
@@ -94,13 +92,9 @@ def resolve(spec: dict, workload: str, root: str = ROOT) -> Cell:
 
 
 def reader(name: str, root: str = ROOT):
-    """``metrics/<name>.py``'s ``read(run) -> float | None``."""
-    path = os.path.join(root, "portbench", "metrics", f"{name}.py")
-    mod_name = "portbench_metric_" + "".join(c if c.isalnum() else "_" for c in name)
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    """``metrics/<name>.py``'s ``read(run) -> float | None``, from the
+    checkout ``root`` (:func:`portbench.load`)."""
+    return load("metrics", name, root).read
 
 
 def plan_facts(sess, nnz: int) -> dict:
@@ -138,9 +132,10 @@ def plan(config: dict, graphs: dict, device) -> tuple:
     return sessions, seconds, facts
 
 
-def compare(answers, graphs: dict, precision: str, device) -> float:
+def compare(answers, graphs: dict, precision: str, device, root: Optional[str] = None) -> float:
     """The widest relative gap of the answers from the reference's at
-    ``precision``: per answer row, max |x − x_ref| / max |x_ref|."""
+    ``precision`` (``reference/<solver>.py`` of the checkout ``root``):
+    per answer row, max |x − x_ref| / max |x_ref|."""
     worst = 0.0
     groups: Dict[tuple, list] = {}
     for a in answers:
@@ -148,16 +143,17 @@ def compare(answers, graphs: dict, precision: str, device) -> float:
     for (graph, solver, iters), group in groups.items():
         payload = np.concatenate([a.payload for a in group])
         x = np.concatenate([a.x for a in group]).astype(np.float64)
-        ref = reference.solve(solver, graphs[graph], payload, iters, precision, device)
+        ref = reference.solve(solver, graphs[graph], payload, iters, precision, device, root)
         scale = np.maximum(np.abs(ref).max(axis=1), 1e-300)
         gap = np.abs(x - ref).max(axis=1) / scale
         worst = max(worst, float(np.nan_to_num(gap, nan=np.inf).max()))
     return worst
 
 
-def checks(run: Run, graphs: dict, limits: dict, device) -> Dict[str, dict]:
-    """Each number compared, with its limit."""
-    return {"x_err": {"value": compare(run.answers, graphs, "float64", device),
+def checks(run: Run, graphs: dict, limits: dict, device, root: str) -> Dict[str, dict]:
+    """Each number compared, with its limit (the reference of the checkout
+    ``root``)."""
+    return {"x_err": {"value": compare(run.answers, graphs, "float64", device, root),
                       "limit": limits["x_err"]},
             "unanswered": {"value": run.failed, "limit": limits["unanswered"]}}
 
@@ -198,11 +194,13 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
                       t_start=t_start, spans=spans, profile=trace and on_card)
         loop = loops.find(cell.traffic["loop"])
         run = loop.run(ctx)
+        t_loop = time.perf_counter_ns()
     if tracer is not None:
         spans.extend((name, t0, t1) for name, t0, t1, *_ in tracer.spans())
         run.program_counters = tracer.counters()
     run.plan_s, run.facts, run.traffic, run.spans = plan_s, facts, cell.traffic, spans
     run.device_trace = run.profiler.read() if run.profiler else None
+    t_read = time.perf_counter_ns()
     # Set-up by part, for the record (standard error; not a metric).
     print(f"setup_s {run.setup_s:.3f}: imports {t_imported - t_start:.3f}, matrices "
           f"{t_graphs - t_imported:.3f}, distribute {plan_s:.3f}, the rest of planning "
@@ -217,8 +215,10 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    compared = checks(run, graphs, cell.cell["limits"], device)
+    t_freed = time.perf_counter_ns()
+    compared = checks(run, graphs, cell.cell["limits"], device, cell.root)
     correct = all(c["value"] <= c["limit"] for c in compared.values())
+    t_checked = time.perf_counter_ns()
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = reader(m["name"], cell.root)(run)
@@ -233,7 +233,31 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
         out["breakdown"] = {"device_ops": dt.device_ops(),
                             "idle_gaps": dt.idle_gaps(loop.SPANS)}
     out["checks"] = compared
+    past_window(run, t_loop, t_read, t_freed, t_checked, time.perf_counter_ns())
     return out
+
+
+def past_window(run: Run, *marks: int) -> None:
+    """The run's time from the window's close to its result, by part, on
+    standard error (for the record; not a metric): where the loop
+    profiled, the profiler's start, the profiled slice and
+    ``Profiler.stop``; then the rest of the loop, ``Profiler.read`` with
+    the copy of the program's spans, the free of the program's state, the
+    reference check, and the metrics' readers with the breakdown. ``marks`` are the
+    ``perf_counter_ns`` readings at the end of each of the last five."""
+    t, parts = run.window_ns[1], []
+    prof = run.profiler
+    if prof is not None:
+        for name, end in (("profiler start", prof.lo), ("profiled slice", prof.hi),
+                          ("Profiler.stop", prof.stopped)):
+            parts.append(f"{name} {(end - t) / 1e9:.3f}")
+            t = end
+    for name, end in zip(("rest of the loop", "Profiler.read + spans", "free",
+                          "reference check", "readers + breakdown"), marks):
+        parts.append(f"{name} {(end - t) / 1e9:.3f}")
+        t = end
+    print(f"past the window {(marks[-1] - run.window_ns[1]) / 1e9:.3f} s: " + ", ".join(parts),
+          file=sys.stderr)
 
 
 def banned_modules(modules=None) -> List[str]:

@@ -8,11 +8,11 @@ change to the program's own generators never changes what is measured.
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
-import os
 from typing import Optional
 
 import numpy as np
+
+from portbench import load
 
 __all__ = ["Matrix", "generator", "make_graphs"]
 
@@ -33,18 +33,9 @@ class Matrix:
 
 
 def generator(config: dict, root: Optional[str] = None):
-    """``portbench/matrices/<generator>.py`` of ``config``, loaded from
-    its file in the checkout ``root`` as the metrics' readers are, or
-    from this package where ``root`` is None or has no such file."""
-    name = config["generator"]
-    path = os.path.join(root or "", "portbench", "matrices", f"{name}.py")
-    if root is None or not os.path.exists(path):
-        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), f"{name}.py")
-    mod_name = "portbench_matrix_" + "".join(c if c.isalnum() else "_" for c in name)
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    """``portbench/matrices/<generator>.py`` of ``config``, from the
+    checkout ``root`` or this package (:func:`portbench.load`)."""
+    return load("matrices", config["generator"], root)
 
 
 def make_graphs(config: dict, seed: int, root: Optional[str] = None) -> dict:

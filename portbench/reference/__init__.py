@@ -5,17 +5,19 @@ configurations state, with float32 vectors and dots).
 
 It is built from the matrices that :mod:`portbench.matrices` made and
 imports nothing of the program. One module a solver
-(``reference/<solver>.py``, found by the traffic's ``solver``) follows
-the arithmetic that the program's solver of that name documents,
-iteration for iteration, with ``tol`` 0.
+(``reference/<solver>.py``, found by the traffic's ``solver`` in the
+cell's checkout, as its generator and readers are) follows the
+arithmetic that the program's solver of that name documents, iteration
+for iteration, with ``tol`` 0.
 """
 from __future__ import annotations
 
-import importlib
+from typing import Optional
 
 import numpy as np
 import torch
 
+from portbench import load
 from portbench.matrices import Matrix
 
 __all__ = ["Operator", "round_tf32", "solve", "PRECISIONS"]
@@ -65,11 +67,11 @@ class Operator:
 
 
 def solve(solver: str, m: Matrix, payload: np.ndarray, iters: int, precision: str,
-          device) -> np.ndarray:
+          device, root: Optional[str] = None) -> np.ndarray:
     """The reference's answer ``[B, n]`` (float64 numpy) to ``solver`` on
-    ``m`` for the payload block ``[B, n]``."""
+    ``m`` for the payload block ``[B, n]``, by ``reference/<solver>.py``
+    of the checkout ``root`` or of this package (:func:`portbench.load`)."""
     x = torch.as_tensor(np.asarray(payload, np.float32), device=device)
     with torch.no_grad():
-        out = importlib.import_module(f"portbench.reference.{solver}").solve(
-            m, x, iters, precision)
+        out = load("reference", solver, root).solve(m, x, iters, precision)
     return out.double().cpu().numpy()

@@ -73,3 +73,18 @@ def test_operator_precisions(planned):
     assert 1e-5 < gap < 1e-2
     with pytest.raises(ValueError):
         Operator(m, "bfloat16", "cpu")
+
+
+def test_a_reference_is_found_in_the_checkout(tmp_path, planned):
+    """``reference/<solver>.py`` of the cell's checkout, as a later PR adds
+    one; the package's where the checkout has none."""
+    m, _ = planned
+    (tmp_path / "portbench" / "reference").mkdir(parents=True)
+    (tmp_path / "portbench" / "reference" / "echo_test.py").write_text(
+        "def solve(m, x, iters, precision):\n    return x * iters\n")
+    b = payload(m.n)
+    assert np.array_equal(reference.solve("echo_test", m, b, 2, "float64", "cpu", tmp_path), 2 * b)
+    package = reference.solve("cg", m, b, 5, "float64", "cpu")
+    assert np.array_equal(reference.solve("cg", m, b, 5, "float64", "cpu", str(tmp_path)), package)
+    with pytest.raises(FileNotFoundError):
+        reference.solve("echo_test", m, b, 2, "float64", "cpu")

@@ -163,7 +163,7 @@ class Profiler:
     def __init__(self, spans: Spans):
         self.spans = spans
         self.prof = None
-        self.lo = self.hi = 0
+        self.lo = self.hi = self.stopped = 0
         self._mark = 0
 
     def start(self) -> None:
@@ -185,6 +185,7 @@ class Profiler:
         torch.cuda.synchronize()
         self.hi = time.perf_counter_ns()
         self.prof.stop()
+        self.stopped = time.perf_counter_ns()
         return self
 
     def read(self) -> DeviceTrace:
