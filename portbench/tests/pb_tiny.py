@@ -4,7 +4,8 @@ the tests: the same files, loops, readers and comparison, on
 (:mod:`portbench.matrices`) and a plan of 2 × 2 units, so a cell of
 another configuration needs no edit here. A test adds a cell to a copy
 of the checkout as a later PR adds one (:func:`copy_checkout`,
-:func:`add_cell`)."""
+:func:`add_cell`). :func:`rmat` is the power-law graph of the PageRank
+tests."""
 from __future__ import annotations
 
 import json
@@ -12,8 +13,10 @@ import os
 import shutil
 import time
 
+import numpy as np
+
 from portbench.harness import HERE, ROOT, read_json, resolve, run_cell
-from portbench.matrices import generator
+from portbench.matrices import Matrix, generator
 
 SPEC = read_json(os.path.join(ROOT, "BENCHMARK.json"))
 WORKLOADS = tuple(w["name"] for w in SPEC["workloads"])
@@ -61,12 +64,19 @@ def add_cell(root, spec: dict, name: str, config: dict, traffic: str, cell: dict
     its text: a generator, a traffic mix, a reference). Entries in
     ``spec``: the configuration, the workload on ``traffic``, and ``name``
     appended to the ``workloads`` of each metric in ``metrics``. ``spec``
-    is then written to ``root``'s ``BENCHMARK.json``."""
+    is then written to ``root``'s ``BENCHMARK.json``.
+
+    Each file a test adds under ``portbench/`` carries ``_test`` in its
+    name (so ``config``'s name and ``name`` do too): the copy carries
+    every file of the package, and a name that a later PR gives a file
+    of the package must not be one a test has taken."""
     root = str(root)
     new = {f"configs/{config['name']}.json": json.dumps(config),
            f"cells/{name}.json": json.dumps(cell), **(files or {})}
     for rel, text in new.items():
         path = os.path.join(root, "portbench", rel)
+        if "_test" not in os.path.basename(rel):
+            raise ValueError(f"{rel}: a test's file under portbench/ carries a _test name")
         if os.path.exists(path):
             raise FileExistsError(f"{rel} is not a new file")
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -81,3 +91,28 @@ def add_cell(root, spec: dict, name: str, config: dict, traffic: str, cell: dict
             m["workloads"].append(name)
     with open(os.path.join(root, "BENCHMARK.json"), "w") as fh:
         json.dump(spec, fh, indent=2)
+
+
+def rmat(scale: int, seed: int, *, signed: bool = False, symmetric: bool = False) -> Matrix:
+    """A power-law graph of 2**scale vertices and 16 edges a vertex, as
+    Graph500's Kronecker generator draws them (A = 0.57, B = C = 0.19),
+    self-loops and duplicates dropped. Directed, every vertex with no
+    out-edge is a dangling column; ``symmetric``, each edge both ways and
+    the vertices permuted. ``signed``: weights of both signs, so |A|
+    differs from A."""
+    n, m = 1 << scale, 16 << scale
+    rng = np.random.default_rng(seed & 0xFFFFFFFFFFFFFFFF)
+    src, dst = np.zeros(m, np.int64), np.zeros(m, np.int64)
+    for bit in range(scale):
+        u = rng.random(m)
+        src |= (u >= 0.76).astype(np.int64) << bit
+        dst |= (((u >= 0.57) & (u < 0.76)) | (u >= 0.95)).astype(np.int64) << bit
+    src, dst = src[src != dst], dst[src != dst]
+    if symmetric:
+        perm = rng.permutation(n)
+        src, dst = perm[np.concatenate([src, dst])], perm[np.concatenate([dst, src])]
+    row, col = np.divmod(np.unique(dst * n + src), n)
+    val = np.ones(row.size)
+    if signed:
+        val = rng.choice([-1.0, 1.0], row.size) * rng.uniform(0.5, 2.0, row.size)
+    return Matrix(n, row.astype(np.int32), col.astype(np.int32), val.astype(np.float32))

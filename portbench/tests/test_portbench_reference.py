@@ -1,5 +1,6 @@
-"""The plain reference against the program on the CPU at a tiny size,
-and its control (TF32) failing the cell's limit."""
+"""The plain references (``cg``, ``pagerank``) against the program on
+the CPU at a tiny size, and their control (TF32) failing the cell's
+limit or reading apart from the program."""
 import numpy as np
 import pytest
 import torch
@@ -8,6 +9,7 @@ from portbench import reference
 from portbench.harness import ROOT, read_json, plan
 from portbench.matrices import make_graphs
 from portbench.reference import Operator, round_tf32
+from portbench.tests.pb_tiny import rmat
 
 CFG = {"generator": "stencil27", "nx": 6, "ny": 5, "nz": 7,
        "plan": {"nodes": 2, "cores": 2, "combo": "NL-HC", "exchange": "selective", "block": 16,
@@ -54,6 +56,44 @@ def test_the_control_fails_the_cells_limit():
     ref = reference.solve("cg", m, b, 50, "float64", "cpu")
     ctrl = reference.solve("cg", m, b, 50, "tf32", "cpu")
     assert rel(ctrl, ref) > limit
+
+
+@pytest.fixture(scope="module")
+def digraph():
+    m = rmat(8, 3, signed=True)
+    sessions, _, _ = plan(CFG, {"g": m}, "cpu")
+    assert (np.bincount(m.col, minlength=m.n) == 0).sum() >= m.n // 8 and (m.val < 0).any()
+    return m, sessions["g"]
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("device_loop", [False, True])
+def test_pagerank_agrees_with_the_program(digraph, rows, device_loop):
+    """``reference/pagerank.py`` against the program's ``pagerank`` on a
+    graph with dangling columns and weights of both signs, the uniform
+    teleport in one row and personalised ones in three."""
+    m, sess = digraph
+    seeds = np.random.default_rng(rows).random((rows, m.n)).astype(np.float32)
+    if rows == 1:
+        seeds[:] = 1.0 / m.n
+    x = sess.solve("pagerank", iters=10, tol=0.0, device_loop=device_loop, seeds=seeds).x
+    ref = reference.solve("pagerank", m, seeds, 10, "float64", "cpu")
+    assert np.allclose(ref.sum(axis=-1), 1.0) and (ref > 0).all()
+    assert rel(x, ref) < 1e-5
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_the_pagerank_control_reads_apart_from_the_program(seed):
+    """On a symmetric power-law graph at 10 iterations, the reference in
+    TF32 in the program's place reads over ten times the program's gap
+    from the float64 reference: a limit fits between the two."""
+    m = rmat(12, seed, symmetric=True)
+    sess = plan(CFG, {"g": m}, "cpu")[0]["g"]
+    seeds = np.full((1, m.n), 1.0 / m.n, np.float32)
+    ref = reference.solve("pagerank", m, seeds, 10, "float64", "cpu")
+    program = rel(sess.solve("pagerank", iters=10, tol=0.0, device_loop=True, seeds=seeds).x, ref)
+    control = rel(reference.solve("pagerank", m, seeds, 10, "tf32", "cpu"), ref)
+    assert control > 10 * program
 
 
 def test_round_tf32():
